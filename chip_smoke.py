@@ -1,0 +1,395 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``graphbasedlocaltrajectoryplanner_torch/csrc``
+(nvcc, one process per source), builds the default oval lattice and the
+unclosed Monteblanco lattice with the port's builder, then:
+
+1. holds every kernel of the fleet tick against its plain PyTorch version
+   on the inputs the tick gives it at batch 1024 (hit_slab, window_dp and
+   backtrace bit-equal, both velocity-scan instances within 1e-4 m/s),
+   with their times (CUDA events) beside the least time the card could
+   take for the same work;
+2. runs the fleet tick (``make_batched_tick``) at batch 1024 in three
+   mixes — default oval with 1 opponent, default oval with 3 opponents and
+   16 collision slots, unclosed Monteblanco with 1 opponent — with the
+   kernels and with the plain versions on the same card: ``valid``,
+   ``h_eff``, ``cost``, ``n_valid``, ``case_a``, ``relabel`` and
+   ``em_base`` equal, trajectories within 2 mm and 0.02 m/s, and every
+   kernel's launch count above zero in the kernel tick.
+
+Prints the card and its power limit, per-kernel and per-mix lines, one
+``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {...}}``.  Any failure is an exception and a
+non-zero exit; without a CUDA device it exits non-zero before printing.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+B = 1024
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM rate and
+# float32 rate outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_OPS_S = 67e12
+TPU = "graphbasedlocaltrajectoryplanner_tpu/ops/"
+CSRC = "graphbasedlocaltrajectoryplanner_torch/csrc/"
+KERNELS = [
+    # name, wrapper module attr, source, TPU kernel replaced
+    ("hit_slab", "cuda_collision.hit_slab", CSRC + "hit_slab.cu",
+     TPU + "pallas_collision.py:112"),
+    ("window_dp", "cuda_window.fused_window_dp", CSRC + "window_dp.cu",
+     TPU + "pallas_window.py:379"),
+    ("backtrace", "cuda_backtrace.backtrace_walk", CSRC + "backtrace.cu",
+     TPU + "pallas_backtrace.py:69"),
+    ("vel_scan_cgg", "cuda_velocity.vel_scan_cgg", CSRC + "vel_scan.cu",
+     TPU + "pallas_velocity.py:357"),
+    ("vel_scan", "cuda_velocity.vel_scan", CSRC + "vel_scan.cu",
+     TPU + "pallas_velocity.py:160"),
+]
+
+
+def _check(ok, what):
+    if not ok:
+        raise RuntimeError(what)
+
+
+def _sh(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def _median_ms(fn, reps):
+    """Median device time of one call, CUDA events around each call."""
+    fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in evs]))
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ---- bytes and operations each kernel's work needs, from its inputs --------
+
+def _cost_hit_slab(args, out):
+    samples, slab, pos, ref2, app = args
+    S = samples.shape[3]
+    n_edges = int(app.sum()) * 2 * samples.shape[1] * samples.shape[2]
+    ops = n_edges * (S * 6 + 1)        # 2 sub, 2 mul, add, min per sample
+    return _nbytes(samples, slab, pos, ref2, app, out), ops
+
+
+def _cost_window_dp(args, out, H):
+    w, zone, sl, sn, slab, hit, p_obs, in_win, obs, last, fac = args
+    Bn, N = sl.shape[0], w.shape[1]
+    ops = Bn * H * 4 * N * N * 2        # add + compare per (slot, n, m)
+    return _nbytes(w, zone, sl, sn, slab, hit, p_obs, in_win, obs, last,
+                   fac, *out), ops
+
+
+def _cost_backtrace(args, out):
+    bp, goal, heff = args
+    # one dependent 4-byte load per walked layer
+    need = int(heff.to(torch.int64).sum()) * 4
+    return need + _nbytes(goal, heff, out), int(heff.sum())
+
+
+_MODE_OPS = {0: 24, 1: 13, 2: 28}      # flops per step: FWD, BRAKE, BWD
+_MODE_STREAMS = {0: 3, 1: 2, 2: 4}     # k/ds/v_lim streams read per step
+
+
+def _cost_vel(args, out, const_gg):
+    k1, T = args[0], args[0].shape[1]
+    mode = args[5] if const_gg else args[9]
+    counts = {m: int((mode == m).sum()) for m in (0, 1, 2)}
+    gg_streams = {0: 2, 1: 2, 2: 4} if not const_gg else {0: 0, 1: 0, 2: 0}
+    nbytes = sum(c * T * 4 * (_MODE_STREAMS[m] + gg_streams[m])
+                 for m, c in counts.items())
+    nbytes += k1.shape[0] * 8 + _nbytes(out)
+    ops = sum(c * T * _MODE_OPS[m] for m, c in counts.items())
+    return nbytes, ops
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
+    from graphbasedlocaltrajectoryplanner_torch.models import track as tt
+    from graphbasedlocaltrajectoryplanner_torch.ops import (
+        cuda_backtrace, cuda_build, cuda_collision, cuda_velocity,
+        cuda_window)
+    from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    from graphbasedlocaltrajectoryplanner_torch.utils.config import (
+        OfflineConfig)
+    mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
+                cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity)
+
+    def wrapper(path):
+        m, f = path.split(".")
+        return getattr(mods[m], f)
+
+    # ---- 1. device --------------------------------------------------------
+    card = _sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    nvcc = [ln for ln in _sh([cuda_build._nvcc(), "--version"]).splitlines()
+            if "release" in ln]
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda} | "
+          f"nvcc: {nvcc[0] if nvcc else '?'}", flush=True)
+
+    # ---- 2. kernels -------------------------------------------------------
+    t0 = time.perf_counter()
+    built = cuda_build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s for "
+          f"{sorted(built) or 'nothing (cached)'}", flush=True)
+    for name, (secs, log) in sorted(built.items()):
+        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
+                if "registers" in ln]
+        print(f"  {name}: nvcc {secs:.1f} s; ptxas: {' | '.join(regs)}")
+
+    # ---- 3. lattices ------------------------------------------------------
+    t0 = time.perf_counter()
+    oval = tl.build_lattice(tt.make_oval_track(), OfflineConfig(),
+                            md5_params="oval").to("cuda")
+    mb = tl.build_lattice(
+        tt.import_globtraj_csv(os.path.join(
+            ROOT, "parity/fixtures/traj_ltpl_unclosed_monteblanco.csv")),
+        OfflineConfig(), md5_params="mb_open").to("cuda")
+    for nm, lat in (("oval", oval), ("unclosed_monteblanco", mb)):
+        print(f"lattice {nm}: L={lat.L} N={lat.N} S={lat.S} H={lat.H_max} "
+              f"closed={lat.closed}")
+    print(f"lattices built in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 4. kernels vs plain at the main path's inputs --------------------
+    # record every kernel call of one kernel tick (default oval, 1 opponent)
+    scen1 = sc.random_scenarios(oval, B, seed=0, n_objects=1, device="cuda")
+    tick_k = sc.make_batched_tick(oval, device="cuda")
+    calls = {name: [] for name, *_ in KERNELS}
+    patched = []
+    for name, path, *_ in KERNELS:
+        m, f = path.split(".")
+        owner = sc if name in ("hit_slab", "window_dp", "backtrace") \
+            else mods[m]
+        attr = {"hit_slab": "hit_slab", "window_dp": "fused_window_dp",
+                "backtrace": "backtrace_walk"}.get(name, f)
+        orig = getattr(owner, attr)
+
+        def rec(*a, _o=orig, _n=name, **k):
+            calls[_n].append((tuple(x.clone() if torch.is_tensor(x) else x
+                                    for x in a), dict(k)))
+            return _o(*a, **k)
+        # a wrapper counts through its module-level name, which is the
+        # recorder while it is in place
+        rec.launches = 0
+        setattr(owner, attr, rec)
+        patched.append((owner, attr, orig))
+    tick_k(scen1)
+    for owner, attr, orig in patched:
+        setattr(owner, attr, orig)
+    torch.cuda.synchronize()
+
+    plains = {
+        "hit_slab": cuda_collision.hit_slab_plain,
+        "window_dp": cuda_window.fused_window_dp_plain,
+        "backtrace": cuda_backtrace.backtrace_walk_plain,
+        "vel_scan_cgg": lambda *a: velops.stacked_vel_scan_cgg_auto(
+            *a, kernels=False),
+        "vel_scan": velops.stacked_vel_scan,
+    }
+    stats = {}
+    for name, path, src, repl in KERNELS:
+        kern = wrapper(path)
+        _check(calls[name], f"{name}: the kernel tick never called it")
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0,
+                   bytes=0, ops=0)
+        for a, kw in calls[name]:
+            ko = kern(*a, **kw)
+            po = plains[name](*a, **kw)
+            torch.cuda.synchronize()
+            ko_t = ko if isinstance(ko, tuple) else (ko,)
+            po_t = po if isinstance(po, tuple) else (po,)
+            err = max(float((x.double() - y.double()).abs().max())
+                      for x, y in zip(ko_t, po_t))
+            if name.startswith("vel_scan"):
+                _check(err <= 1e-4, f"{name}: max |kernel - plain| {err}")
+            else:
+                for x, y in zip(ko_t, po_t):
+                    _check(torch.equal(x, y), f"{name}: not bit-equal")
+            ms = _median_ms(lambda: kern(*a, **kw), 30)
+            plain_ms = _median_ms(lambda: plains[name](*a, **kw),
+                                  5 if name.startswith("vel") else 20)
+            if name == "hit_slab":
+                nb, ops = _cost_hit_slab(a, ko)
+            elif name == "window_dp":
+                nb, ops = _cost_window_dp(a, ko_t, kw["h_max"])
+            elif name == "backtrace":
+                nb, ops = _cost_backtrace(a, ko)
+            else:
+                nb, ops = _cost_vel(a, ko, name == "vel_scan_cgg")
+            t_b, t_o = nb / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+            shape = "x".join(str(d) for d in a[0].shape)
+            print(f"kernel {name} call {a[0].shape[0]} rows [{shape}]: "
+                  f"max|kernel-plain|={err:.3g} kernel {ms:.4f} ms "
+                  f"plain {plain_ms:.4f} ms bound {max(t_b, t_o):.4f} ms "
+                  f"({'bytes' if t_b >= t_o else 'operations'}: {nb} B, "
+                  f"{ops} ops)", flush=True)
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bytes"] += nb
+            tot["ops"] += ops
+            tot["err"] = max(tot["err"], err)
+        t_b = tot["bytes"] / PEAK_BYTES_S * 1e3
+        t_o = tot["ops"] / PEAK_F32_OPS_S * 1e3
+        tot["bound_ms"] = max(t_b, t_o)
+        tot["bound_by"] = "bytes" if t_b >= t_o else "operations"
+        stats[name] = tot
+
+    # ---- 5. the fleet tick, kernels vs plain, three mixes ------------------
+    mixes = [
+        ("oval_1opp", oval, dict(n_objects=1)),
+        ("oval_3opp_o16", oval, dict(n_objects=3, o_pad=sc.O_PAD)),
+        ("unclosed_monteblanco_1opp", mb, dict(n_objects=1)),
+    ]
+    launches = None
+    for mix, lat, skw in mixes:
+        scen = sc.random_scenarios(lat, B, seed=0, device="cuda", **skw)
+        tick_k = sc.make_batched_tick(lat, device="cuda")
+        tick_p = sc.make_batched_tick(lat, device="cuda", kernels=False)
+        for _, path, *_ in KERNELS:
+            wrapper(path).launches = 0
+        out_k = tick_k(scen)
+        torch.cuda.synchronize()
+        counts = {name: wrapper(path).launches for name, path, *_ in KERNELS}
+        _check(all(c > 0 for c in counts.values()),
+               f"{mix}: a kernel was not launched: {counts}")
+        if launches is None:
+            launches = counts
+        out_p = tick_p(scen)
+        torch.cuda.synchronize()
+        for k in ("valid", "h_eff", "cost", "n_valid", "case_a", "relabel",
+                  "em_base"):
+            _check(torch.equal(out_k[k], out_p[k]), f"{mix}: {k} differs")
+        d = (out_k["trajs"].double() - out_p["trajs"].double()).abs()
+        d_pos = float(d[..., 0:3].max())
+        d_vx = float(d[..., 5].max())
+        _check(d_pos <= 2e-3 and d_vx <= 0.02,
+               f"{mix}: trajs deviate by {d_pos} m, {d_vx} m/s")
+        tr = out_k["trajs"]
+        _check(bool(torch.isfinite(tr).all()), f"{mix}: non-finite trajs")
+        _check(tr.shape[:2] == (B, sc.N_OUT), f"{mix}: shape {tr.shape}")
+        n_valid_actions = int(out_k["valid"].sum())
+        _check(n_valid_actions > 0, f"{mix}: no valid action")
+        ts = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tick_k(scen)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        tp = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tick_p(scen)
+            torch.cuda.synchronize()
+            tp.append(time.perf_counter() - t0)
+        t_med, tp_med = float(np.median(ts)), float(np.median(tp))
+        print(f"tick {mix} B={B} O={scen.obj_pos.shape[1]} on {card}: "
+              f"kernel launches {counts}; equal fields equal; "
+              f"max|d pos|={d_pos:.3g} m max|d vx|={d_vx:.3g} m/s; "
+              f"valid actions {n_valid_actions}; kernel tick "
+              f"{t_med * 1e3:.2f} ms = {B / t_med:.1f} replans/s; plain "
+              f"tick {tp_med * 1e3:.2f} ms = {B / tp_med:.1f} replans/s",
+              flush=True)
+
+    # where the time goes: one kernel tick (oval, 1 opponent) under
+    # torch.profiler — device kernels launched and their summed time
+    from torch.profiler import ProfilerActivity, profile
+    tick_k = sc.make_batched_tick(oval, device="cuda")
+    tick_k(scen1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tick_k(scen1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tick_k(scen1)
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+
+    def self_dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # kernel events only: the aten ops that launch them carry the same
+    # device time again
+    dev = [e for e in ka if str(e.device_type).endswith("CUDA")
+           and self_dev_us(e) > 0]
+    busy_ms = sum(self_dev_us(e) for e in dev) / 1e3
+    n_dev = sum(e.count for e in dev)
+    top = sorted(dev, key=self_dev_us, reverse=True)[:6]
+    if n_dev:
+        print(f"profile tick oval_1opp B={B} on {card}: {n_dev} device "
+              f"kernels, device busy {busy_ms:.2f} ms of a {wall_ms:.2f} ms "
+              f"unprofiled tick ({100 * busy_ms / wall_ms:.1f} %); top: "
+              + "; ".join(f"{e.key[:48]} x{e.count} "
+                          f"{self_dev_us(e) / 1e3:.3f} ms" for e in top))
+    else:
+        print("profile: the profiler saw no device time (not measured)")
+
+    # single-replan latency through the kernel tick
+    scen_b1 = sc.random_scenarios(oval, 1, seed=1, device="cuda")
+    tick_k = sc.make_batched_tick(oval, device="cuda")
+    tick_k(scen_b1)
+    lat_s = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick_k(scen_b1)
+        torch.cuda.synchronize()
+        lat_s.append(time.perf_counter() - t0)
+    print(f"single replan (B=1, oval) on {card}: p50 "
+          f"{np.percentile(lat_s, 50) * 1e3:.2f} ms p99 "
+          f"{np.percentile(lat_s, 99) * 1e3:.2f} ms")
+
+    # ---- 6. summary lines -------------------------------------------------
+    rows = []
+    for name, path, src, repl in KERNELS:
+        s = stats[name]
+        rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
+                         launches=launches[name], max_abs_err=s["err"],
+                         ms=s["ms"], plain_ms=s["plain_ms"],
+                         bound_ms=s["bound_ms"], bound_by=s["bound_by"],
+                         library_ms=None))
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each source is compiled on its own by ``nvcc`` into a shared library with a
+plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds).  Builds happen at first use, into ``_build/`` inside
+the package (listed in ``.gitignore``), keyed by a hash of the source and
+the flags; :func:`build_all` starts every missing build at once.
+
+Flags: ``sm_90a``, ``-O3``, and ``-fmad=false`` without fast math, so
+every product rounds on its own as in the plain PyTorch versions (an FMA
+would round ``dx*dx + dy*dy`` differently and flip boundary comparisons).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("hit_slab", "window_dp", "backtrace", "vel_scan")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v"]
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.isfile(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every listed source whose library is missing, all ``nvcc``
+    processes started together.  Returns ``{name: (seconds, ptxas log)}``
+    for the sources built now; raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    done, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        done[name] = (secs, log)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return done
+
+
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+# C entry point and argument types of each source
+_ENTRY = {
+    "hit_slab": ("hit_slab_launch", [_P] * 6 + [_I] * 5 + [_P]),
+    "window_dp": ("window_dp_launch",
+                  [_P, _P, _LL] + [_P] * 11 + [_I] * 7 + [_P]),
+    "backtrace": ("backtrace_launch", [_P] * 4 + [_I] * 3 + [_P]),
+    "vel_scan": ("vel_scan_launch",
+                 [_P] * 11 + [_I, _P, _I, _I, _I] + [_F] * 7 + [_P]),
+}
+
+
+def load(name: str):
+    """The C entry point of one source (argument and return types set),
+    its library built first if needed."""
+    fn = _LIBS.get(name)
+    if fn is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all([name])
+        entry, argtypes = _ENTRY[name]
+        fn = getattr(ctypes.CDLL(str(path)), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = fn
+    return fn
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+
+
+def require(t: torch.Tensor, dtype: torch.dtype, shape: tuple, what: str):
+    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype/shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous tensor")

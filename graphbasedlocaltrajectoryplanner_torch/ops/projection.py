@@ -1,0 +1,76 @@
+"""Arc-length projection helpers (torch) — counterpart of the JAX package's
+``ops/projection.py`` (reference ``closest_path_index.py`` /
+``get_s_coord.py``), batched: a polyline ``(..., n, 2)`` and positions
+``(..., 2)`` broadcast over their leading dims."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx[...], :] for x (..., n, C) and idx (...,) (broadcast)."""
+    lead = torch.broadcast_shapes(x.shape[:-2], idx.shape)
+    x = x.expand(lead + x.shape[-2:])
+    idx = idx.expand(lead)
+    return torch.gather(x, -2, idx[..., None, None].expand(
+        lead + (1, x.shape[-1])))[..., 0, :]
+
+
+def closest_path_index(path: torch.Tensor, pos: torch.Tensor):
+    """Index of the closest point of ``path`` (..., n, 2) to ``pos``
+    (..., 2) (first on ties), and the squared distances (..., n)."""
+    d2 = torch.sum((path - pos[..., None, :]) ** 2, dim=-1)
+    return torch.argmin(d2, dim=-1), d2
+
+
+def _angle3pt(a, b, c):
+    """Angle turning from a to c around b, wrapped to (-pi, pi]."""
+    ang = torch.atan2(c[..., 1] - b[..., 1], c[..., 0] - b[..., 0]) \
+        - torch.atan2(a[..., 1] - b[..., 1], a[..., 0] - b[..., 0])
+    return torch.where(ang > math.pi, ang - 2 * math.pi,
+                       torch.where(ang <= -math.pi, ang + 2 * math.pi, ang))
+
+
+def get_s_coord(ref_line: torch.Tensor, pos: torch.Tensor,
+                s_array: torch.Tensor, closed: bool = False):
+    """Continuous s-coordinate of ``pos`` on a polyline: closest vertex, the
+    neighbour whose 3-point angle at ``pos`` is larger holds the foot
+    point, perpendicular drop onto that segment.
+
+    :param ref_line: (..., n, 2); ``pos``: (..., 2); ``s_array``: (..., n).
+    :returns: (s (...,), (idx_a, idx_b)) the ordered neighbouring indices
+              enclosing the projection.
+    """
+    n = ref_line.shape[-2]
+    idx_nb, _ = closest_path_index(ref_line, pos)
+    if closed:
+        idx1 = torch.remainder(idx_nb - 1, n)
+        idx2 = torch.remainder(idx_nb + 1, n)
+    else:
+        idx1 = torch.clamp(idx_nb - 1, min=0)
+        idx2 = torch.clamp(idx_nb + 1, max=n - 1)
+    p_nb = _take(ref_line, idx_nb)
+    ang1 = torch.abs(_angle3pt(p_nb, pos, _take(ref_line, idx1)))
+    ang2 = torch.abs(_angle3pt(p_nb, pos, _take(ref_line, idx2)))
+    use_prev = ang1 > ang2
+    a_idx = torch.where(use_prev, idx1, idx_nb)
+    b_idx = torch.where(use_prev, idx_nb, idx2)
+    a_pos = _take(ref_line, a_idx)
+    b_pos = _take(ref_line, b_idx)
+    ab = b_pos - a_pos
+    denom = torch.clamp(ab[..., 0] * ab[..., 0] + ab[..., 1] * ab[..., 1],
+                        min=1e-12)
+    d = pos - a_pos
+    t = (d[..., 0] * ab[..., 0] + d[..., 1] * ab[..., 1]) / denom
+    foot = a_pos + t[..., None] * ab
+    fa = foot - a_pos
+    ds = torch.sqrt(fa[..., 0] * fa[..., 0] + fa[..., 1] * fa[..., 1])
+    s_lead = torch.broadcast_shapes(s_array.shape[:-1], a_idx.shape)
+    s = torch.gather(s_array.expand(s_lead + s_array.shape[-1:]), -1,
+                     a_idx.expand(s_lead)[..., None])[..., 0] + ds
+    idx_a = torch.where(ang1 >= ang2, idx1, idx_nb)
+    idx_b = torch.where(ang1 >= ang2, idx_nb, idx2)
+    return s, (idx_a, idx_b)

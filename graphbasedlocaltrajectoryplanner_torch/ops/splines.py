@@ -1,0 +1,190 @@
+"""Cubic-spline kernels (torch) — counterpart of the JAX package's
+``ops/splines.py`` (tph ``calc_splines`` / ``interp_splines`` /
+``calc_head_curv_an``).
+
+Spline model: per segment a parametric cubic
+``x(t) = a0 + a1 t + a2 t^2 + a3 t^3`` with ``t in [0, 1]`` (independently
+for x and y); coefficient tensors are shaped ``(..., 4, 2)``.  Chains are
+fitted through their nodal arc tangents ``m_j`` (tridiagonal system with
+clamped or periodic boundaries) solved by a Thomas sweep.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphbasedlocaltrajectoryplanner_torch.ops.heading import (
+    heading_to_dir, dir_to_heading)
+
+
+def _norm2(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis of size 2, as sqrt(x*x + y*y)."""
+    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+
+
+def fit_hermite(p0, p1, psi0, psi1):
+    """Cubic segment through ``p0 -> p1`` with boundary headings (tangent
+    magnitude = point distance).  Batched over leading dims; returns
+    ``(..., 4, 2)``."""
+    dist = _norm2(p1 - p0)[..., None]
+    d0 = heading_to_dir(psi0) * dist
+    d1 = heading_to_dir(psi1) * dist
+    dp = p1 - p0
+    return torch.stack([p0, d0, 3.0 * dp - 2.0 * d0 - d1,
+                        -2.0 * dp + d0 + d1], dim=-2)
+
+
+def _thomas(lower, diag, upper, rhs):
+    """Tridiagonal solve (Thomas algorithm) along axis 0.
+
+    ``lower``, ``diag``, ``upper``: (n, *batch); ``rhs``: (n, *batch) or
+    (n, *batch, k).  ``lower[0]`` and ``upper[-1]`` are ignored.
+    """
+    if rhs.dim() > diag.dim():
+        lower, diag, upper = lower[..., None], diag[..., None], upper[..., None]
+    n = diag.shape[0]
+    c_prev = diag[0] * 0.0
+    d_prev = rhs[0] * 0.0
+    cs, ds = [], []
+    for i in range(n):
+        denom = diag[i] - lower[i] * c_prev
+        c_prev = upper[i] / denom
+        d_prev = (rhs[i] - lower[i] * d_prev) / denom
+        cs.append(c_prev)
+        ds.append(d_prev)
+    x = rhs[0] * 0.0
+    xs = [None] * n
+    for i in range(n - 1, -1, -1):
+        x = ds[i] - cs[i] * x
+        xs[i] = x
+    return torch.stack(xs)
+
+
+def _cyclic_thomas(lower, diag, upper, rhs):
+    """Cyclic tridiagonal solve of one system (wrap terms ``lower[0]`` and
+    ``upper[-1]``) via a Sherman-Morrison correction on :func:`_thomas`.
+    ``lower/diag/upper``: (n,); ``rhs``: (n,) or (n, k)."""
+    n = diag.shape[0]
+    alpha = lower[0]
+    beta = upper[-1]
+    gamma = -diag[0]
+    diag_mod = diag.clone()
+    diag_mod[0] = diag_mod[0] - gamma
+    diag_mod[n - 1] = diag_mod[n - 1] - alpha * beta / gamma
+    u = torch.zeros(n, dtype=diag.dtype, device=diag.device)
+    u[0] = gamma
+    u[n - 1] = beta
+    y = _thomas(lower, diag_mod, upper, rhs)
+    if rhs.dim() > 1:
+        q = _thomas(lower, diag_mod, upper, u[:, None])[:, 0]
+        v_y = y[0] + (alpha / gamma) * y[n - 1]
+        v_q = q[0] + (alpha / gamma) * q[n - 1]
+        return y - q[:, None] * (v_y / (1.0 + v_q))[None, :]
+    q = _thomas(lower, diag_mod, upper, u)
+    v_y = y[0] + (alpha / gamma) * y[n - 1]
+    v_q = q[0] + (alpha / gamma) * q[n - 1]
+    return y - q * (v_y / (1.0 + v_q))
+
+
+def _coeffs_from_tangents(points, m, seg_len):
+    """Hermite coefficients per segment from nodal arc tangents.
+
+    ``points``, ``m``: (..., n+1, 2); ``seg_len``: (..., n).
+    Returns (..., n, 4, 2)."""
+    dp = points[..., 1:, :] - points[..., :-1, :]
+    mL0 = m[..., :-1, :] * seg_len[..., None]
+    mL1 = m[..., 1:, :] * seg_len[..., None]
+    return torch.stack([points[..., :-1, :], mL0,
+                        3.0 * dp - 2.0 * mL0 - mL1,
+                        -2.0 * dp + mL0 + mL1], dim=-2)
+
+
+def fit_clamped_chain(points, psi_s, psi_e, el_lengths=None):
+    """C2 cubic chain through ``points`` (n, 2) with clamped boundary
+    headings (tph ``calc_splines`` with psi_s/psi_e).  Returns (n-1, 4, 2)."""
+    n_seg = points.shape[0] - 1
+    if el_lengths is None:
+        seg_len = _norm2(points[1:] - points[:-1])
+    else:
+        seg_len = el_lengths
+    seg_len = torch.clamp(seg_len, min=1e-12)
+    m0 = heading_to_dir(psi_s)
+    mn = heading_to_dir(psi_e)
+    if n_seg == 1:
+        return _coeffs_from_tangents(points, torch.stack([m0, mn]), seg_len)
+    lam = seg_len[:-1] / seg_len[1:]
+    dp_over_l = (points[1:] - points[:-1]) / seg_len[:, None]
+    rhs = 3.0 * (dp_over_l[:-1] + lam[:, None] * dp_over_l[1:])
+    rhs[0] = rhs[0] + (-m0)
+    rhs[-1] = rhs[-1] + (-lam[-1] * mn)
+    ones = torch.ones_like(lam)
+    lower = torch.cat([ones[:1] * 0.0, ones[1:]])
+    diag = 2.0 * (1.0 + lam)
+    upper = torch.cat([lam[:-1], ones[:1] * 0.0])
+    m_int = _thomas(lower, diag, upper, rhs)
+    m = torch.cat([m0[None], m_int, mn[None]], dim=0)
+    return _coeffs_from_tangents(points, m, seg_len)
+
+
+def fit_periodic_chain(points_closed, el_lengths=None):
+    """C2 periodic cubic chain through ``points_closed`` (n+1, 2) with the
+    first point repeated at the end (periodic ``m_0 = m_n``).  Returns
+    (n, 4, 2)."""
+    if el_lengths is None:
+        seg_len = _norm2(points_closed[1:] - points_closed[:-1])
+    else:
+        seg_len = el_lengths
+    seg_len = torch.clamp(seg_len, min=1e-12)
+    prev_len = torch.roll(seg_len, 1)
+    lam = prev_len / seg_len
+    dp_over_l = (points_closed[1:] - points_closed[:-1]) / seg_len[:, None]
+    rhs = 3.0 * (torch.roll(dp_over_l, 1, dims=0) + lam[:, None] * dp_over_l)
+    lower = torch.ones_like(lam)
+    diag = 2.0 * (1.0 + lam)
+    m = _cyclic_thomas(lower, diag, lam, rhs)
+    m_ext = torch.cat([m, m[:1]], dim=0)
+    return _coeffs_from_tangents(points_closed, m_ext, seg_len)
+
+
+def eval_spline(coeffs, t):
+    """Evaluate segment(s) ``coeffs`` (..., 4, 2) at ``t`` (...,) -> (..., 2)."""
+    t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)[..., None]
+    a0, a1, a2, a3 = (coeffs[..., 0, :], coeffs[..., 1, :],
+                      coeffs[..., 2, :], coeffs[..., 3, :])
+    return a0 + t * (a1 + t * (a2 + t * a3))
+
+
+def eval_spline_d(coeffs, t):
+    """First derivative wrt t."""
+    t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)[..., None]
+    a1, a2, a3 = coeffs[..., 1, :], coeffs[..., 2, :], coeffs[..., 3, :]
+    return a1 + t * (2.0 * a2 + t * 3.0 * a3)
+
+
+def eval_spline_dd(coeffs, t):
+    """Second derivative wrt t."""
+    t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)[..., None]
+    a2, a3 = coeffs[..., 2, :], coeffs[..., 3, :]
+    return 2.0 * a2 + t * 6.0 * a3
+
+
+def head_curv_an(coeffs, t):
+    """Analytic heading + curvature at parameter(s) t (tph
+    ``calc_head_curv_an``)."""
+    d = eval_spline_d(coeffs, t)
+    dd = eval_spline_dd(coeffs, t)
+    psi = dir_to_heading(d[..., 0], d[..., 1])
+    denom = torch.pow(d[..., 0] ** 2 + d[..., 1] ** 2, 1.5)
+    kappa = (d[..., 0] * dd[..., 1] - d[..., 1] * dd[..., 0]) \
+        / torch.clamp(denom, min=1e-12)
+    return psi, kappa
+
+
+def spline_lengths(coeffs, n_interp: int = 15):
+    """Approximate arc length per segment by summing ``n_interp - 1``
+    chords.  ``coeffs``: (..., 4, 2)."""
+    t = torch.linspace(0.0, 1.0, n_interp, dtype=coeffs.dtype,
+                       device=coeffs.device)
+    t_b = t.expand(coeffs.shape[:-2] + (n_interp,))
+    pts = eval_spline(coeffs[..., None, :, :], t_b)
+    return torch.sum(_norm2(pts[..., 1:, :] - pts[..., :-1, :]), dim=-1)

@@ -1,0 +1,279 @@
+"""Per-tick path generation (torch, batched over scenarios) — counterpart
+of the JAX package's ``planner/pathgen.py``.
+
+For all four action slots (straight / follow / left / right) of every
+scenario: the masked window DP (zones for every slot, object-blocked edges
+for straight/left/right, overtake splits for left/right, the
+``w_last_edges`` discount), the virtual-goal vectors, the backtrace and the
+C2-refit path assembly.  Every function takes a leading scenario (or row)
+dimension instead of being vmapped.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
+from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
+from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
+from graphbasedlocaltrajectoryplanner_torch.ops import splines as spl
+from graphbasedlocaltrajectoryplanner_torch.ops.cuda_collision import (
+    hit_slab_plain)
+from graphbasedlocaltrajectoryplanner_torch.ops.cuda_window import (
+    fused_window_dp_plain)
+from graphbasedlocaltrajectoryplanner_torch.ops.heading import (
+    heading_to_dir, dir_to_heading)
+from graphbasedlocaltrajectoryplanner_torch.ops.search import INF
+
+# action slot order (fixed)
+SLOT_STRAIGHT, SLOT_FOLLOW, SLOT_LEFT, SLOT_RIGHT = 0, 1, 2, 3
+N_SLOTS = 4
+
+
+def window_meta(lat: Lattice, start_layer, obj_pos, obj_radius, obj_active,
+                obs_layer, obs_node, obs_found):
+    """Per-scenario window metadata: object applicability + inflated radii
+    for the hit test, slab layers {obj_layer-1, obj_layer}, the overtake
+    split position, window layers.  Scenario tensors carry a leading B."""
+    L, H = lat.L, lat.H_max
+    dev = lat.device
+    sl = start_layer.long()
+    h_goal = lat.h_goal_for_start[sl]
+    win_layers = torch.remainder(
+        sl[:, None] + torch.arange(H + 1, device=dev), L)
+    obj_layer = col.object_layers(lat.refline, obj_pos)            # (B, O)
+    fwd = col.layer_dist_mod(sl[:, None], obj_layer, L)
+    in_range = (fwd <= h_goal.long()[:, None] + 1) | (fwd >= L - 1)
+    obj_app = obj_active & in_range
+    ref2 = (obj_radius + lat.veh_width / 2.0) ** 2 \
+        + lat.sampled_resolution ** 2 / 4.0
+    slab_layers = torch.stack([torch.remainder(obj_layer - 1, L),
+                               obj_layer], dim=-1)                  # (B,O,2)
+    p_obs = torch.remainder(obs_layer.long() - sl, L)
+    in_win = obs_found & (p_obs <= H)
+    return dict(h_goal=h_goal, win_layers=win_layers,
+                slab_layers=slab_layers, obj_app=obj_app, ref2=ref2,
+                p_obs=p_obs, in_win=in_win)
+
+
+def window_prelude(lat: Lattice, start_layer, obj_pos, obj_radius,
+                   obj_active, obs_layer, obs_node, obs_found):
+    """:func:`window_meta` plus the slab hit masks (B, O, 2, N, N) by the
+    plain formulation."""
+    pre = window_meta(lat, start_layer, obj_pos, obj_radius, obj_active,
+                      obs_layer, obs_node, obs_found)
+    pre["hit_slab"] = hit_slab_plain(lat.samples_xy, pre["slab_layers"],
+                                     obj_pos, pre["ref2"], pre["obj_app"])
+    return pre
+
+
+def window_vg(lat: Lattice, win_layers, zone_block, p_obs, in_win, obs_node):
+    """Per-slot virtual-goal vectors (B, 4, H+1, N): zone- and
+    overtake-blocked nodes cannot be goals."""
+    N, H = lat.N, lat.H_max
+    dev = lat.device
+    B = win_layers.shape[0]
+    node_ids = torch.arange(N, device=dev)
+    blk_left = node_ids[None, :] >= obs_node.long()[:, None]        # (B, N)
+    blk_right = ~blk_left
+    if zone_block.dim() == 3:
+        zb_win = zone_block[torch.arange(B, device=dev)[:, None], win_layers]
+    else:
+        zb_win = zone_block[win_layers]                             # (B,H+1,N)
+    vg_win = torch.where(zb_win, INF, lat.vg_cost[win_layers])
+    at_obs = in_win[:, None, None] \
+        & (torch.arange(H + 1, device=dev)[None, :] == p_obs[:, None])[..., None]
+    return torch.stack([vg_win, vg_win,
+                        torch.where(at_obs & blk_left[:, None, :], INF, vg_win),
+                        torch.where(at_obs & blk_right[:, None, :], INF,
+                                    vg_win)], dim=1)
+
+
+def plan_window_kernel(lat: Lattice, start_layer, start_node, zone_block,
+                       obj_pos, obj_radius, obj_active, obs_layer, obs_node,
+                       obs_found, last_nodes, w_last_factors):
+    """Masked 4-slot DP for a batch of scenarios, plain formulation.
+
+    :returns: dict with ``best``/``bp``/``vg`` (B, 4, H+1, N),
+        ``win_layers`` (B, H+1), ``h_goal`` (B,).
+    """
+    pre = window_prelude(lat, start_layer, obj_pos, obj_radius, obj_active,
+                         obs_layer, obs_node, obs_found)
+    best, bp = fused_window_dp_plain(
+        lat.w, zone_block, start_layer, start_node, pre["slab_layers"],
+        pre["hit_slab"], pre["p_obs"], pre["in_win"], obs_node, last_nodes,
+        w_last_factors, closed=bool(lat.closed), h_max=int(lat.H_max))
+    vg = window_vg(lat, pre["win_layers"], zone_block, pre["p_obs"],
+                   pre["in_win"], obs_node)
+    return dict(best=best, bp=bp, vg=vg, win_layers=pre["win_layers"],
+                h_goal=pre["h_goal"])
+
+
+def feasibility_vectors(best, vg):
+    """Per-slot feasibility of ending at window layer h (any goal node)."""
+    return torch.amin(best + vg, dim=-1) < srch.FEAS_THRESH
+
+
+def backtrace_slot(best, bp, vg, h_eff):
+    """Goal argmin + backtrace per row at a fixed horizon: ``best``/``bp``/
+    ``vg`` (R, H+1, N), ``h_eff`` (R,) -> (nodes (R, H+1), cost (R,))."""
+    rows = torch.arange(best.shape[0], device=best.device)
+    goal_tot = best[rows, h_eff.long()] + vg[rows, h_eff.long()]
+    goal_node = torch.argmin(goal_tot, dim=-1)
+    nodes = srch.backtrace(bp, h_eff, goal_node)
+    return nodes, goal_tot[rows, goal_node]
+
+
+# ---------------------------------------------------------------------------
+# path assembly: fuse edge samples, C2 re-fit through nodes, resample
+# ---------------------------------------------------------------------------
+
+def _fit_clamped_chain_padded(points, el, psi_s, psi_e, n_seg, H):
+    """Clamped C2 chain fit per row with a per-row segment count
+    ``n_seg <= H``: equations at or beyond the true end pin the tangent to
+    the end heading, keeping the tridiagonal system at static size.
+
+    ``points`` (R, H+1, 2), ``el`` (R, H), ``psi_s``/``psi_e``/``n_seg``
+    (R,).  Returns coefficients (R, H, 4, 2)."""
+    seg_len = torch.clamp(el, min=1e-9)
+    m0 = heading_to_dir(psi_s)                                  # (R, 2)
+    mn = heading_to_dir(psi_e)
+    lam = seg_len[:, :-1] / seg_len[:, 1:]                      # (R, H-1)
+    dp_over_l = (points[:, 1:] - points[:, :-1]) / seg_len[..., None]
+    rhs = 3.0 * (dp_over_l[:, :-1] + lam[..., None] * dp_over_l[:, 1:])
+    rhs = torch.cat([(rhs[:, 0] + (-m0))[:, None], rhs[:, 1:]], dim=1)
+    ones = torch.ones_like(lam)
+    lower = torch.cat([ones[:, :1] * 0.0, ones[:, 1:]], dim=1)
+    diag = 2.0 * (1.0 + lam)
+    upper = lam
+    j = torch.arange(lam.shape[1], device=lam.device)
+    pin = j[None, :] >= (n_seg.long()[:, None] - 1)
+    lower = torch.where(pin, 0.0, lower)
+    diag = torch.where(pin, 1.0, diag)
+    upper = torch.where(pin, 0.0, upper)
+    rhs = torch.where(pin[..., None], mn[:, None, :], rhs)
+    u = spl._thomas(lower.T, diag.T, upper.T,
+                    rhs.transpose(0, 1)).transpose(0, 1)        # (R, H-1, 2)
+    m = torch.cat([m0[:, None], u, mn[:, None]], dim=1)        # (R, H+1, 2)
+    past = torch.arange(H + 1, device=lam.device)[None, :] \
+        >= n_seg.long()[:, None]
+    m = torch.where(past[..., None], mn[:, None, :], m)
+    m = torch.cat([m0[:, None], m[:, 1:]], dim=1)
+    return spl._coeffs_from_tangents(points, m, seg_len)
+
+
+def packed_edge_table(lat: Lattice):
+    """Per-edge assembly data packed into one ``(L, N, N, 10)`` table:
+    ``[npts, len, coeffs_0..7]`` (raceline edges reuse the periodic
+    raceline spline; the ``a0`` column is the exact start-node position)."""
+    L, N = lat.L, lat.N
+    dev = lat.device
+    l2 = torch.remainder(torch.arange(L, device=dev) + 1, L)
+    her = spl.fit_hermite(
+        lat.node_pos[:, :, None, :].expand(L, N, N, 2),
+        lat.node_pos[l2][:, None, :, :].expand(L, N, N, 2),
+        lat.node_psi[:, :, None].expand(L, N, N),
+        lat.node_psi[l2][:, None, :].expand(L, N, N))
+    ar = torch.arange(N, device=dev)
+    rl = lat.rl_idx.long()
+    is_rl = (ar[None, :, None] == rl[:, None, None]) \
+        & (ar[None, None, :] == rl[l2][:, None, None])
+    coeffs = torch.where(is_rl[..., None, None],
+                         lat.raceline_coeffs[:, None, None], her)
+    return torch.cat([lat.edge_npts[..., None].to(torch.float32),
+                      lat.edge_len[..., None],
+                      coeffs.reshape(L, N, N, 8)], dim=-1)
+
+
+def assemble_action_kernel(lat: Lattice, packed, win_layers, nodes, h_eff,
+                           psi_s, p_max: int):
+    """Fuse each row's node chain into one C2 path (fixed size).
+
+    Per-edge sample counts give the fused index layout (shared endpoints
+    deduplicated), element lengths come from the pre-refit stored edges,
+    and one curvature-continuous spline through the node positions
+    (clamped headings, chord lengths = stored edge lengths) is re-sampled
+    with the same per-segment counts for x, y, psi, kappa.
+
+    :param packed: :func:`packed_edge_table` of ``lat``.
+    :param win_layers: (R, H+1); ``nodes`` (R, H+1) window node chains
+        (-1 pad); ``h_eff`` (R,) >= 1; ``psi_s`` (R,) start headings.
+    :returns: dict(path (R, p_max, 5) [x y psi kappa el], n_valid (R,))
+    """
+    H = lat.H_max
+    dev = nodes.device
+    R = nodes.shape[0]
+    rows = torch.arange(R, device=dev)
+    h_eff = h_eff.long()
+    nsafe = nodes.long().clamp(0, lat.N - 1)
+    seg_active = torch.arange(H, device=dev)[None, :] < h_eff[:, None]
+
+    m_all = nsafe[:, torch.clamp(torch.arange(H + 1, device=dev) + 1, 0, H)]
+    rows_e = packed[win_layers.long(), nsafe, m_all]            # (R, H+1, 10)
+    npts_e = torch.where(seg_active, rows_e[:, :H, 0].to(torch.int32), 1)
+    len_e = torch.where(seg_active, rows_e[:, :H, 1], 1.0)
+    ecoeffs = rows_e[..., 2:10]                                 # (R, H+1, 8)
+
+    node_idx = torch.cat([torch.zeros((R, 1), dtype=torch.int64, device=dev),
+                          torch.cumsum(npts_e - 1, dim=1)], dim=1)
+    n_valid = node_idx[rows, h_eff] + 1
+
+    chain_pos = ecoeffs[..., 0:2]
+    end_pos = chain_pos[rows, h_eff]
+    chain_pos = torch.where(
+        (torch.arange(H + 1, device=dev)[None, :] > h_eff[:, None])[..., None],
+        end_pos[:, None, :], chain_pos)
+
+    # end heading: analytic heading at t=1 of the last active edge
+    c_last = ecoeffs[rows, h_eff - 1].reshape(R, 4, 2)
+    psi_e, _ = spl.head_curv_an(c_last, 1.0)
+
+    coeffs = _fit_clamped_chain_padded(chain_pos, len_e, psi_s, psi_e,
+                                       h_eff, H)                # (R, H, 4, 2)
+
+    # sample the refit chain with the per-segment point counts
+    idxp = torch.arange(p_max, device=dev)
+    seg_id = torch.sum(node_idx[:, None, 1:] <= idxp[None, :, None], dim=2)
+    seg_id = torch.clamp(seg_id, 0, H - 1)                      # (R, p_max)
+    table = torch.cat([coeffs.reshape(R, H, 8),
+                       node_idx[:, :H, None].to(torch.float32),
+                       npts_e[..., None].to(torch.float32),
+                       ecoeffs[:, :H]], dim=-1)                  # (R, H, 18)
+    rows_p = torch.gather(table, 1, seg_id[..., None].expand(R, p_max, 18))
+    start_p = rows_p[..., 8].to(torch.int64)
+    npts_p = rows_p[..., 9].to(torch.int64)
+
+    within = (idxp[None, :] - start_p).to(torch.float32)
+    den = torch.clamp(npts_p - 1, min=1)
+    t = torch.clamp(within / den, 0.0, 1.0)
+    ax0, ay0, ax1, ay1, ax2, ay2, ax3, ay3 = rows_p[..., :8].unbind(-1)
+    px = ax0 + t * (ax1 + t * (ax2 + t * ax3))
+    py = ay0 + t * (ay1 + t * (ay2 + t * ay3))
+    dx = ax1 + t * (2.0 * ax2 + t * 3.0 * ax3)
+    dy = ay1 + t * (2.0 * ay2 + t * 3.0 * ay3)
+    ddx = 2.0 * ax2 + t * 6.0 * ax3
+    ddy = 2.0 * ay2 + t * 6.0 * ay3
+    psi = dir_to_heading(dx, dy)
+    denom = torch.pow(dx ** 2 + dy ** 2, 1.5)
+    kappa = (dx * ddy - dy * ddx) / torch.clamp(denom, min=1e-12)
+    # per-point element length of the pre-refit stored edge, recomputed from
+    # the edge coefficients with the offline table's formula
+    t2 = torch.clamp((within + 1.0) / den, 0.0, 1.0)
+    ex0, ey0, ex1, ey1, ex2, ey2, ex3, ey3 = rows_p[..., 10:18].unbind(-1)
+    dxe = (ex0 + t2 * (ex1 + t2 * (ex2 + t2 * ex3))
+           - (ex0 + t * (ex1 + t * (ex2 + t * ex3))))
+    dye = (ey0 + t2 * (ey1 + t2 * (ey2 + t2 * ey3))
+           - (ey0 + t * (ey1 + t * (ey2 + t * ey3))))
+    el = torch.sqrt(dxe * dxe + dye * dye)
+    tail = idxp[None, :] >= (n_valid[:, None] - 1)
+    el = torch.where(tail, 0.0, el)
+    path = torch.stack([px, py, psi, kappa, el], dim=-1)
+    # final point: the refit's last real segment at t=1; padding rows
+    # freeze at the same values
+    c_fin = coeffs[rows, h_eff - 1]                              # (R, 4, 2)
+    psi_f, kappa_f = spl.head_curv_an(c_fin, 1.0)
+    pt_f = spl.eval_spline(c_fin, 1.0)
+    fin = torch.stack([pt_f[:, 0], pt_f[:, 1], psi_f, kappa_f,
+                       torch.zeros_like(psi_f)], dim=-1)
+    path = torch.where(tail[..., None], fin[:, None, :], path)
+    return dict(path=path, n_valid=n_valid)

@@ -1,0 +1,327 @@
+"""Per-action velocity planning for the batched fleet tick (torch, fb
+backend) — counterpart of the JAX package's ``planner/velplan.py``
+(``opponent_summary``, ``velocity_stage_scenario``, ``emergency_kernel``).
+
+Everything works on fixed-size padded rows with a leading scenario
+dimension B: element lengths are zero at and beyond the true path end, and
+dynamic sub-ranges (delay-compensation prefix, brake prefix, reduced
+horizon) are masks on element lengths and curvatures.  The recurrences of
+one dependency level run as one stacked scan over all scenarios' rows.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from graphbasedlocaltrajectoryplanner_torch.ops import dynshift
+from graphbasedlocaltrajectoryplanner_torch.ops import projection as proj
+from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
+
+# opponent brake-distance ggv
+OPP_GGV_AX = 14.0
+OPP_GGV_AY = 14.0
+
+# emergency-profile vehicle constants
+EMERG_VEH_MASS = 1160.0
+EMERG_VEH_DRAGCOEFF = 0.854
+
+# opponent brake-summary window (fine raceline points)
+F_CAP = 128
+
+
+_CUMSUM_BLOCK = 16
+
+
+def _cumsum(x):
+    """Inclusive cumulative sum along the last axis in the summation order
+    of the reference's cumsum on the CPU (XLA's blocked rewrite): float32
+    sequential within blocks of 16, block totals scanned the same way
+    recursively, each block's exclusive prefix added last.
+
+    The arc lengths it produces feed discrete choices of the velocity
+    stage (stop index, follow hand-off), where a last-bit difference can
+    move a profile; ``torch.cumsum`` accumulates in float64 on the CPU and
+    in another order on the card."""
+    n = x.shape[-1]
+    if n <= _CUMSUM_BLOCK:
+        cols = [x[..., 0]]
+        for i in range(1, n):
+            cols.append(cols[-1] + x[..., i])
+        return torch.stack(cols, dim=-1)
+    m = -(-n // _CUMSUM_BLOCK)
+    xb = torch.nn.functional.pad(x, (0, m * _CUMSUM_BLOCK - n)).reshape(
+        x.shape[:-1] + (m, _CUMSUM_BLOCK))
+    inner = _cumsum(xb)
+    tot = _cumsum(inner[..., -1])
+    excl = torch.cat([torch.zeros_like(tot[..., :1]), tot[..., :-1]], dim=-1)
+    return (inner + excl[..., None]).reshape(
+        x.shape[:-1] + (m * _CUMSUM_BLOCK,))[..., :n]
+
+
+def _cumsum0(x):
+    """Cumulative sum along the last axis with a leading zero, dropping the
+    last element: ``[0, x0, x0+x1, ...]`` of the same length."""
+    z = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+    return torch.cat([z, _cumsum(x[..., :-1])], dim=-1)
+
+
+def _at(v, i):
+    """v[..., i[...]] along the last axis."""
+    return torch.gather(v, -1, i.long()[..., None])[..., 0]
+
+
+def opponent_summary(glob_rl, glob_el, obj_pos, v_obj, dyn_model_exp,
+                     drag_coeff, m_veh, f_cap: int = F_CAP,
+                     kernels: bool = True):
+    """Opponent stopping behaviour on the global raceline, per scenario.
+
+    :param glob_rl: (F, 5) fine raceline [s, x, y, kappa, vel];
+        ``glob_el`` (F,); ``obj_pos`` (B, 2); ``v_obj`` (B,).
+    :returns: (opp_stop_dist (B,), roll_vel (B, f_cap), roll_el (B, f_cap),
+               roll_cum (B, f_cap))."""
+    F = glob_rl.shape[0]
+    _, (idx_a, _) = proj.get_s_coord(glob_rl[:, 1:3], obj_pos, glob_rl[:, 0],
+                                     closed=True)
+    start = torch.remainder(idx_a, F - 1)
+    # enough wrap copies that start (< F-1) + f_cap rows always exist
+    n_tiles = 1 + -(-f_cap // (F - 1))
+    glob2 = torch.cat([glob_rl[:F - 1, 3:5], glob_el[:F - 1, None]],
+                      dim=1).repeat(n_tiles, 1)
+    win = dynshift.select_window(glob2, start, f_cap)       # (B, f_cap, 3)
+    kappa_r, vel_r, el_r = win[..., 0], win[..., 1], win[..., 2]
+    v_start = torch.minimum(v_obj, vel_r[:, 0])
+    gg = torch.full(kappa_r.shape + (2,), OPP_GGV_AX, dtype=kappa_r.dtype,
+                    device=kappa_r.device)
+    gg[..., 1] = OPP_GGV_AY
+    v_brake = velops.calc_vel_profile_brake_auto(
+        kappa_r, el_r, gg, v_start, dyn_model_exp, drag_coeff, m_veh,
+        kernels=kernels)
+    opp_stop_dist = velops.stop_distance(v_brake, el_r)
+    return opp_stop_dist, vel_r, el_r, _cumsum(el_r)
+
+
+def _runout_velocity(roll_vel, roll_cum, target_dist):
+    """Raceline velocity after the opponent travelled ``target_dist``."""
+    idx = torch.sum(roll_cum < target_dist[:, None], dim=-1) + 1
+    idx = torch.clamp(idx, 0, roll_vel.shape[-1] - 1)
+    return torch.where(target_dist <= 0.0, roll_vel[:, 0], _at(roll_vel, idx))
+
+
+def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
+                            vel_est, vel_max, machines, v_max_offset,
+                            v_end_rl, red_len, obj_dist, v_obj, safety_d,
+                            opp_stop_dist, roll_vel, roll_cum, veh_length,
+                            ctrl_cp, ctrl_kd, ctrl_kp, ctrl_tanw,
+                            dyn_model_exp, drag_coeff, m_veh,
+                            const_gg: tuple, control_type: str = "PD",
+                            follow_slot: int = 1, kernels: bool = True):
+    """Slot-specialized fb velocity stage for a batch of scenarios: the
+    follow solver runs only for the follow slot (13 recurrence rows per
+    scenario over 4 dependency levels).  The first ``c_len`` rows keep the
+    committed ``vel_course`` and replanning starts from ``vel_plan``.
+
+    :param paths: (B, 4, P, 5) [x y psi kappa el]; ``n_valids``,
+        ``v_end_rl``, ``red_len`` (B, 4); ``gg`` (P, 2) shared local gg;
+        ``vel_course`` (B, P); ``c_len``, ``vel_plan``, ``vel_est``,
+        ``obj_dist``, ``v_obj``, ``opp_stop_dist`` (B,); ``roll_vel``,
+        ``roll_cum`` (B, F_CAP); scalar parameters as 0-dim float32
+        tensors (``dyn_model_exp``, ``drag_coeff``, ``m_veh`` as floats).
+    :param const_gg: ``(ax, ay)``, the one constant local gg that ``gg``
+        holds in every row; the recurrences run on the kernel's constant-gg
+        instance, without gg streams.
+    :returns: dict(trajs (B, 4, P, 7), vel_bound (B, 4), too_close (B,)).
+    """
+    Fs = follow_slot
+    B, _, P, _ = paths.shape
+    dev = paths.device
+    idx = torch.arange(P, device=dev)
+    kappa = paths[..., 3]
+    el = paths[..., 4]                                        # (B, 4, P)
+    kabs = torch.abs(kappa)
+    row_inf = torch.full((B, P - 1), math.inf, dtype=paths.dtype, device=dev)
+    ctrl = {"c_p": ctrl_cp, "k_d": ctrl_kd, "k_p": ctrl_kp, "tan_w": ctrl_tanw}
+    flip = lambda x: torch.flip(x, dims=[-1])                 # noqa: E731
+
+    def _stack(rows, modes):
+        cols = list(zip(*rows))
+        per_step = [torch.stack(c, dim=1) for c in cols[:-1]]   # (B, r, T)
+        r, T = per_step[0].shape[1:]
+        per_step = [x.reshape(B * r, T) for x in per_step]
+        v_init = torch.stack(cols[-1], dim=1).reshape(B * r)
+        mode = torch.tensor(modes, dtype=torch.int32, device=dev).repeat(B)
+        return per_step, v_init, mode, r, T
+
+    def _lvl(rows, modes):
+        (k1, k2, d_, vl), vi, mode, r, T = _stack(rows, modes)
+        out = velops.stacked_vel_scan_cgg_auto(
+            k1, k2, d_, vl, vi, mode, machines, dyn_model_exp, drag_coeff,
+            m_veh, float(const_gg[0]), float(const_gg[1]), kernels=kernels)
+        return out.reshape(B, r, T + 1)
+
+    def _brake_row(k_abs, e, v0):
+        return (k_abs[:, :-1], k_abs[:, :-1], e[:, :-1], row_inf, v0)
+
+    def _fwd_row(k_abs, e, v_bound, v0):
+        return (k_abs[:, :-1], k_abs[:, :-1], e[:, :-1], v_bound[:, 1:],
+                torch.minimum(v_bound[:, 0], v0))
+
+    def _bwd_row(k_abs, e, v_f):
+        return (flip(k_abs[:, 1:]), flip(k_abs[:, :-1]), flip(e[:, :-1]),
+                flip(v_f[:, :-1]), v_f[:, -1])
+
+    c_len = c_len.long()
+    # ---- level 0: brake prefix per slot ------------------------------------
+    prefix_active = vel_plan > (vel_max + 0.1)                    # (B,)
+    el_pref = torch.where(idx < c_len[:, None, None], 0.0, el)
+    v_decel = _lvl([_brake_row(kabs[:, s], el_pref[:, s], vel_plan)
+                    for s in range(4)], [velops.MODE_BRAKE] * 4)  # (B, 4, P)
+    reach = v_decel <= vel_max
+    first_reach = torch.argmax(reach.to(torch.int32), dim=2)
+    first_reach = torch.where(torch.any(reach, dim=2), first_reach, P - 1)
+    pref_idx = torch.where(prefix_active[:, None],
+                           torch.maximum(first_reach, c_len[:, None]),
+                           c_len[:, None])                        # (B, 4)
+    vel_start = torch.where(prefix_active[:, None], _at(v_decel, pref_idx),
+                            vel_plan[:, None])
+
+    masked = idx < pref_idx[..., None]
+    kabs_m = torch.abs(torch.where(masked, 0.0, kappa))
+    el_m = torch.where(masked, 0.0, el)
+
+    # ---- follow scalars (follow slot only) ---------------------------------
+    s4 = _cumsum0(el)                                             # (B, 4, P)
+    control_d = ctrl_cp * safety_d + veh_length
+    safety_total = safety_d + veh_length
+    too_close = (obj_dist - safety_total) < 0.0
+    s_f = _cumsum0(el_m[:, Fs])                                   # (B, P)
+    s_stop = obj_dist - safety_total + opp_stop_dist
+    stop_idx = torch.clamp(torch.sum(s_f < s_stop[:, None], dim=-1), 0, P - 1)
+    opp_vel_at = _runout_velocity(
+        roll_vel, roll_cum,
+        opp_stop_dist - ((obj_dist - safety_total + opp_stop_dist)
+                         - (_at(s4[:, Fs], torch.clamp(n_valids[:, Fs] - 1,
+                                                       0, P - 1))
+                            - _at(s4[:, Fs], pref_idx[:, Fs]))))
+    v_end_f = torch.where(s_stop > s_f[:, -1], opp_vel_at, 0.0)
+    v_control = torch.minimum(torch.clamp(
+        velops.follow_control_vel(ctrl, obj_dist, control_d, v_obj, vel_est,
+                                  control_type), min=0.0), vel_max)
+
+    # ---- normal bounds per slot --------------------------------------------
+    spl_len = _at(s4, torch.clamp(n_valids - 1, 0, P - 1))        # (B, 4)
+    cum = _cumsum(el[..., :-1])
+    below = cum < (spl_len[..., None] - 5.0)
+    v_idx_red = torch.argmin(below.to(torch.int32), dim=-1) + 1
+    v_idx_red = torch.where((v_idx_red == 1) & (n_valids > 1), n_valids,
+                            v_idx_red)
+    v_idx = torch.where(red_len, v_idx_red, n_valids)             # (B, 4)
+    v_end = torch.where(red_len, 0.0, v_end_rl)
+    tail = idx >= v_idx[..., None] - 1
+    el_n = torch.where(tail, 0.0, el_m)
+    v_lat = torch.sqrt(gg[:, 1] / torch.clamp(kabs_m, min=1e-9))  # (B, 4, P)
+    v0_n = torch.minimum(v_lat, vel_max)
+    v0_n = torch.where(tail, torch.minimum(v0_n, v_end[..., None]), v0_n)
+    v0_u = torch.minimum(v_lat[:, Fs], vel_max)
+
+    # ---- level 1: ego brake (F) + unconstrained fwd (F) + normal fwd x4 ----
+    lvl1 = _lvl([_brake_row(kabs_m[:, Fs], el_m[:, Fs], vel_start[:, Fs]),
+                 _fwd_row(kabs_m[:, Fs], el_m[:, Fs], v0_u, vel_start[:, Fs])]
+                + [_fwd_row(kabs_m[:, s], el_n[:, s], v0_n[:, s],
+                            vel_start[:, s]) for s in range(4)],
+                [velops.MODE_BRAKE, velops.MODE_FWD] + [velops.MODE_FWD] * 4)
+    v_ego_brake = lvl1[:, 0]
+    vf_u = lvl1[:, 1]
+    vf_n = lvl1[:, 2:]
+    ego_stop_d = velops.stop_distance(v_ego_brake, el_m[:, Fs])
+
+    seg1_active = (vel_start[:, Fs] > v_control) & (stop_idx >= 2)
+    below_c = v_ego_brake <= v_control[:, None]
+    idx_c_raw = torch.argmax(below_c.to(torch.int32), dim=-1)
+    idx_c_raw = torch.where(torch.any(below_c, dim=-1), idx_c_raw, stop_idx)
+    idx_c = torch.where(seg1_active,
+                        torch.minimum(torch.where(idx_c_raw == 0, stop_idx,
+                                                  idx_c_raw), stop_idx),
+                        torch.zeros_like(stop_idx))
+    vx_control_start = torch.where(seg1_active, _at(v_ego_brake, idx_c),
+                                   vel_start[:, Fs])
+
+    el_seg2 = torch.where(idx < stop_idx[:, None], el_m[:, Fs], 0.0)
+    el_seg2 = torch.where(idx < idx_c[:, None], 0.0, el_seg2)
+    v0_s = torch.minimum(v_lat[:, Fs], v_control[:, None])
+    v0_s = torch.where(idx >= stop_idx[:, None],
+                       torch.minimum(v0_s, v_end_f[:, None]), v0_s)
+
+    # ---- level 2: seg2 fwd (F) + unconstrained bwd (F) + normal bwd x4 ----
+    lvl2 = _lvl([_fwd_row(kabs_m[:, Fs], el_seg2, v0_s,
+                          torch.minimum(vx_control_start, v_control)),
+                 _bwd_row(kabs_m[:, Fs], el_m[:, Fs], vf_u)]
+                + [_bwd_row(kabs_m[:, s], el_n[:, s], vf_n[:, s])
+                   for s in range(4)],
+                [velops.MODE_FWD, velops.MODE_BWD] + [velops.MODE_BWD] * 4)
+    vf_s = lvl2[:, 0]
+    vx_compl = flip(lvl2[:, 1])
+    vx_normal = flip(lvl2[:, 2:])                                 # (B, 4, P)
+
+    # ---- level 3: seg2 bwd -------------------------------------------------
+    v_seg2 = flip(_lvl([_bwd_row(kabs_m[:, Fs], el_seg2, vf_s)],
+                       [velops.MODE_BWD])[:, 0])
+
+    # ---- follow assembly ---------------------------------------------------
+    follow_bound = torch.abs(_at(v_seg2, idx_c) - vx_control_start) <= 1.0
+    follow_bound &= ~((~seg1_active) & (stop_idx < 2))
+    vx_follow = torch.where(idx < idx_c[:, None], v_ego_brake, v_seg2)
+    vx_follow = torch.where(idx > stop_idx[:, None], 0.0, vx_follow)
+    follow_bound &= torch.abs(vx_follow[:, 0] - vel_start[:, Fs]) <= 1.0
+    cannot_hold = ego_stop_d >= s_stop
+    vx_follow = torch.where(cannot_hold[:, None], v_ego_brake, vx_follow)
+    follow_bound = torch.where(cannot_hold, True, follow_bound)
+    vx_follow = torch.minimum(vx_follow, vx_compl)
+
+    # ---- normal assembly per slot ------------------------------------------
+    vx_normal = torch.where(idx >= v_idx[..., None], 0.0, vx_normal)
+    degenerate = (v_idx - pref_idx) <= 1                          # (B, 4)
+    vx_normal = torch.where(degenerate[..., None], 0.0, vx_normal)
+    at_pref = _at(vx_normal, pref_idx)
+    normal_bound = torch.abs(at_pref - vel_start) < v_max_offset
+    normal_bound = torch.where(degenerate, False, normal_bound)
+
+    # ---- select per slot + prefix + acceleration ---------------------------
+    is_follow = torch.arange(4, device=dev) == Fs
+    vx_follow_sel = torch.where(red_len[:, Fs, None],
+                                torch.minimum(vx_follow, vx_normal[:, Fs]),
+                                vx_follow)
+    vx_branch = torch.where(is_follow[None, :, None], vx_follow_sel[:, None],
+                            vx_normal)
+    vel_bound = torch.where(is_follow[None, :], follow_bound[:, None],
+                            normal_bound)
+    vx_full = torch.where(masked, v_decel, vx_branch)
+    vx_full = torch.where(idx < c_len[:, None, None], vel_course[:, None, :],
+                          vx_full)
+    ax = (vx_full[..., 1:] ** 2 - vx_full[..., :-1] ** 2) \
+        / torch.clamp(2.0 * el[..., :-1], min=1e-9)
+    ax = torch.where(el[..., :-1] > 1e-9, ax, 0.0)
+    stationary = torch.isclose(vx_full[..., :-1], torch.zeros_like(ax)) \
+        & torch.isclose(ax, torch.zeros_like(ax)) \
+        & (idx[:-1] < n_valids[..., None] - 1)
+    ax = torch.where(stationary, -5.0, ax)
+    ax_f = torch.cat([ax, torch.zeros_like(ax[..., :1])], dim=-1)
+    trajs = torch.stack([s4, paths[..., 0], paths[..., 1], paths[..., 2],
+                         paths[..., 3], vx_full, ax_f], dim=-1)
+    return dict(trajs=trajs, vel_bound=vel_bound, too_close=too_close)
+
+
+def emergency_kernel(traj, gg, kernels: bool = True):
+    """Emergency brake-to-stop profile on each trajectory (B, P, 7)
+    [s x y psi kappa vx ax] with the hard-coded emergency vehicle
+    constants; ``gg`` (P, 2) local gg."""
+    el = traj[..., 1:, 0] - traj[..., :-1, 0]
+    el = torch.cat([el, torch.zeros_like(el[..., :1])], dim=-1)
+    v_brake = velops.calc_vel_profile_brake_auto(
+        traj[..., 4], el, gg.expand(traj.shape[0], -1, -1), traj[:, 0, 5],
+        1.0, EMERG_VEH_DRAGCOEFF, EMERG_VEH_MASS, kernels=kernels)
+    a_brake = velops.calc_ax_profile(v_brake, el)
+    a_brake = torch.cat([a_brake, torch.zeros_like(a_brake[..., :1])], dim=-1)
+    return torch.cat([traj[..., 0:5], v_brake[..., None],
+                      a_brake[..., None]], dim=-1)

@@ -1,0 +1,63 @@
+"""PyTorch port, runtime contract: the package imports without JAX and
+without the JAX package, and its entry points default to the card —
+raising, never falling back to the CPU, where there is none."""
+
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+_BLOCKED_IMPORT = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib",
+                       "graphbasedlocaltrajectoryplanner_tpu"):
+                raise ImportError("blocked: " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import graphbasedlocaltrajectoryplanner_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")]
+    for n in names:
+        importlib.import_module(n)
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib",
+                                  "graphbasedlocaltrajectoryplanner_tpu")]
+    assert not bad, bad
+    print(len(names))
+""")
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_entry_points_need_the_card_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
+    from graphbasedlocaltrajectoryplanner_torch.models import track as tt
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    from graphbasedlocaltrajectoryplanner_torch.utils.config import (
+        OfflineConfig)
+    lat = tl.build_lattice(tt.make_oval_track(n=120, r=40.0, straight=80.0),
+                           OfflineConfig(min_plan_horizon=120.0))
+    assert lat.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sc.make_batched_tick(lat)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lat.to()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sc.random_scenarios(lat, 2)
+    # asking for the CPU works
+    scen = sc.random_scenarios(lat, 2, device="cpu")
+    assert scen.start_layer.device.type == "cpu"
