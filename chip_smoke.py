@@ -17,7 +17,24 @@ unclosed Monteblanco lattice with the port's builder, then:
    kernels and with the plain versions on the same card: ``valid``,
    ``h_eff``, ``cost``, ``n_valid``, ``case_a``, ``relabel`` and
    ``em_base`` equal, trajectories within 2 mm and 0.02 m/s, and every
-   kernel's launch count above zero in the kernel tick.
+   kernel's launch count above zero in the kernel tick;
+3. runs the dense-window search (``pathgen.plan_window_dense`` and
+   ``search.search_window``, B=1024 on the default oval with 1 opponent)
+   through the min-plus kernel: the kernel bit-equal to its plain version,
+   the dense frontiers and backpointers equal to ``plan_window_kernel``'s
+   (the window-DP kernel), the search equal to its plain version;
+4. drives the interactive facade (``GraphLTPL``) in closed loop on the
+   card — default oval for 150 ticks with a slower opponent and a zone,
+   unclosed Monteblanco into its track end — and replays the same input
+   stream through ``GraphLTPL(kernels=False)``: action sets and node
+   chains equal on every tick, trajectories within 2 mm and 0.02 m/s,
+   every kernel of the path launched; on two recorded ticks every kernel
+   call is held against its plain version;
+5. times the facade per tick (``calc_paths`` + ``calc_vel_profile``) on
+   the real clock.
+
+The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
+inside the checkout.
 
 Prints the card and its power limit, per-kernel and per-mix lines, one
 ``{"kernels": [...]}`` line, and as its last line
@@ -28,6 +45,7 @@ non-zero exit; without a CUDA device it exits non-zero before printing.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -47,7 +65,8 @@ PEAK_F32_OPS_S = 67e12
 TPU = "graphbasedlocaltrajectoryplanner_tpu/ops/"
 CSRC = "graphbasedlocaltrajectoryplanner_torch/csrc/"
 KERNELS = [
-    # name, wrapper module attr, source, TPU kernel replaced
+    # name, wrapper module attr, source, TPU kernel replaced (the first
+    # five run in the fleet tick, the last in the dense-window search)
     ("hit_slab", "cuda_collision.hit_slab", CSRC + "hit_slab.cu",
      TPU + "pallas_collision.py:112"),
     ("window_dp", "cuda_window.fused_window_dp", CSRC + "window_dp.cu",
@@ -58,7 +77,17 @@ KERNELS = [
      TPU + "pallas_velocity.py:357"),
     ("vel_scan", "cuda_velocity.vel_scan", CSRC + "vel_scan.cu",
      TPU + "pallas_velocity.py:160"),
+    ("minplus", "cuda_minplus.minplus_scan", CSRC + "minplus.cu",
+     TPU + "pallas_minplus.py:90"),
 ]
+FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan")
+# the kernels of the interactive facade's path
+FACADE = ("hit_slab", "window_dp", "backtrace", "vel_scan")
+FACADE_TICKS_OVAL = 150
+# unclosed Monteblanco: from 85 m before the track end (layer 26) into the
+# end, where the track is blocked and the backup brake profile takes over
+FACADE_TICKS_UNCLOSED = 100
+FACADE_START_LAYER_UNCLOSED = 26
 
 
 def _check(ok, what):
@@ -132,20 +161,67 @@ def _cost_vel(args, out, const_gg):
     return nbytes, ops
 
 
+def _cost_minplus(w, start, best, bp):
+    R, H, N, _ = w.shape
+    return _nbytes(w, start, best, bp), R * H * N * N * 2   # add + compare
+
+
+class Recorder:
+    """Replaces kernel wrappers by recorders while in a ``with`` block: each
+    call is passed on, and its arguments are cloned into ``calls[name]``
+    while ``on`` is set.  A wrapper counts its launches through its module
+    name, which is the recorder while it is in place; the counts are handed
+    back to the wrapper on exit."""
+
+    def __init__(self, targets):
+        self.targets = targets          # name -> (owner module, attribute)
+        self.calls = {name: [] for name in targets}
+        self.on = True
+
+    def __enter__(self):
+        self.saved = []
+        for name, (owner, attr) in self.targets.items():
+            orig = getattr(owner, attr)
+
+            def rec(*a, _o=orig, _n=name, **k):
+                if self.on:
+                    self.calls[_n].append((
+                        tuple(x.clone() if torch.is_tensor(x) else x
+                              for x in a), dict(k)))
+                return _o(*a, **k)
+            rec.launches = 0
+            setattr(owner, attr, rec)
+            self.saved.append((owner, attr, orig, rec))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig, rec in self.saved:
+            setattr(owner, attr, orig)
+            orig.launches += rec.launches
+        return False
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
     from graphbasedlocaltrajectoryplanner_torch.models import track as tt
     from graphbasedlocaltrajectoryplanner_torch.ops import (
-        cuda_backtrace, cuda_build, cuda_collision, cuda_velocity,
-        cuda_window)
+        cuda_backtrace, cuda_build, cuda_collision, cuda_minplus,
+        cuda_velocity, cuda_window)
+    from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
     from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
     from graphbasedlocaltrajectoryplanner_torch.utils.config import (
         OfflineConfig)
+    from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
+    from graphbasedlocaltrajectoryplanner_torch.planner.facade import (
+        GraphLTPL)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        closed_loop as cl)
     mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
-                cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity)
+                cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity,
+                cuda_minplus=cuda_minplus)
 
     def wrapper(path):
         m, f = path.split(".")
@@ -187,29 +263,14 @@ def main():
     # record every kernel call of one kernel tick (default oval, 1 opponent)
     scen1 = sc.random_scenarios(oval, B, seed=0, n_objects=1, device="cuda")
     tick_k = sc.make_batched_tick(oval, device="cuda")
-    calls = {name: [] for name, *_ in KERNELS}
-    patched = []
-    for name, path, *_ in KERNELS:
+    targets = {}
+    for name, path, *_ in KERNELS[:len(FLEET)]:
         m, f = path.split(".")
-        owner = sc if name in ("hit_slab", "window_dp", "backtrace") \
-            else mods[m]
-        attr = {"hit_slab": "hit_slab", "window_dp": "fused_window_dp",
-                "backtrace": "backtrace_walk"}.get(name, f)
-        orig = getattr(owner, attr)
-
-        def rec(*a, _o=orig, _n=name, **k):
-            calls[_n].append((tuple(x.clone() if torch.is_tensor(x) else x
-                                    for x in a), dict(k)))
-            return _o(*a, **k)
-        # a wrapper counts through its module-level name, which is the
-        # recorder while it is in place
-        rec.launches = 0
-        setattr(owner, attr, rec)
-        patched.append((owner, attr, orig))
-    tick_k(scen1)
-    for owner, attr, orig in patched:
-        setattr(owner, attr, orig)
+        targets[name] = (mods[m], f)
+    with Recorder(targets) as recorder:
+        tick_k(scen1)
     torch.cuda.synchronize()
+    calls = recorder.calls
 
     plains = {
         "hit_slab": cuda_collision.hit_slab_plain,
@@ -220,7 +281,7 @@ def main():
         "vel_scan": velops.stacked_vel_scan,
     }
     stats = {}
-    for name, path, src, repl in KERNELS:
+    for name, path, src, repl in KERNELS[:len(FLEET)]:
         kern = wrapper(path)
         _check(calls[name], f"{name}: the kernel tick never called it")
         tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0,
@@ -282,7 +343,8 @@ def main():
             wrapper(path).launches = 0
         out_k = tick_k(scen)
         torch.cuda.synchronize()
-        counts = {name: wrapper(path).launches for name, path, *_ in KERNELS}
+        counts = {name: wrapper(path).launches
+                  for name, path, *_ in KERNELS[:len(FLEET)]}
         _check(all(c > 0 for c in counts.values()),
                f"{mix}: a kernel was not launched: {counts}")
         if launches is None:
@@ -375,15 +437,215 @@ def main():
           f"{np.percentile(lat_s, 50) * 1e3:.2f} ms p99 "
           f"{np.percentile(lat_s, 99) * 1e3:.2f} ms")
 
-    # ---- 6. summary lines -------------------------------------------------
+    # ---- 6. the dense-window search through the min-plus kernel ----------
+    obs1 = sc._select_obstacle(oval, scen1)
+    zone0 = torch.zeros((oval.L, oval.N), dtype=torch.bool, device="cuda")
+    w_fac = torch.tensor([0.0, 0.5, 0.8], device="cuda")
+    win_args = (oval, scen1.start_layer, scen1.start_node, zone0,
+                scen1.obj_pos, scen1.obj_radius, scen1.obj_active,
+                obs1["obs_layer"], obs1["obs_node"], obs1["obs_found"],
+                scen1.last_nodes, w_fac)
+    start4 = scen1.start_node.long()[:, None].expand(B, 4)
+    shrink4 = torch.tensor([True, True, False, False],
+                           device="cuda").expand(B, 4)
+    for _, path, *_ in KERNELS:
+        wrapper(path).launches = 0
+    dense = pg.plan_window_dense(*win_args)
+    h_goal4 = dense["h_goal"].long()[:, None].expand(B, 4)
+    sw = srch.search_window(dense["w_all"], start4, dense["vg"], h_goal4,
+                            shrink4)
+    torch.cuda.synchronize()
+    dense_counts = {name: wrapper(path).launches
+                    for name, path, *_ in KERNELS}
+    _check(dense_counts["minplus"] > 0 and dense_counts["backtrace"] > 0,
+           f"dense window: a kernel was not launched: {dense_counts}")
+    scan = pg.plan_window_kernel(*win_args)
+    for k in ("best", "bp", "vg"):
+        _check(torch.equal(dense[k], scan[k]),
+               f"plan_window_dense {k} != plan_window_kernel {k}")
+    sw_p = srch.search_window(dense["w_all"], start4, dense["vg"], h_goal4,
+                              shrink4, kernels=False)
+    for k in ("nodes", "h_eff", "goal_node", "cost", "feasible"):
+        _check(torch.equal(sw[k], sw_p[k]), f"search_window {k} differs")
+    n_feasible = int(sw["feasible"].sum())
+    _check(n_feasible > 0, "search_window: no feasible row")
+    w_all = dense["w_all"]
+    ko = cuda_minplus.minplus_scan(w_all, start4)
+    po = cuda_minplus.minplus_scan_plain(w_all, start4)
+    torch.cuda.synchronize()
+    for x, y in zip(ko, po):
+        _check(torch.equal(x, y), "minplus: not bit-equal")
+    mp_ms = _median_ms(lambda: cuda_minplus.minplus_scan(w_all, start4), 30)
+    mp_plain_ms = _median_ms(
+        lambda: cuda_minplus.minplus_scan_plain(w_all, start4), 20)
+    R = w_all.shape[0] * 4
+    nb, ops = _cost_minplus(w_all.reshape(R, *w_all.shape[2:]),
+                            start4.to(torch.int32), *ko)
+    t_b, t_o = nb / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    stats["minplus"] = dict(ms=mp_ms, plain_ms=mp_plain_ms,
+                            bound_ms=max(t_b, t_o), err=0.0,
+                            bound_by="bytes" if t_b >= t_o else "operations")
+    print(f"kernel minplus call {R} rows [{'x'.join(map(str, w_all.shape))}]"
+          f": max|kernel-plain|=0 (best, bp bit-equal) kernel {mp_ms:.4f} ms "
+          f"plain {mp_plain_ms:.4f} ms bound {max(t_b, t_o):.4f} ms "
+          f"({stats['minplus']['bound_by']}: {nb} B, {ops} ops)", flush=True)
+    print(f"dense window B={B} on {card}: kernel launches "
+          f"{ {k: v for k, v in dense_counts.items() if v} }; "
+          f"plan_window_dense best/bp/vg equal plan_window_kernel's; "
+          f"search_window kernels == plain ({n_feasible} of {R} rows "
+          f"feasible)", flush=True)
+
+    # ---- 7. the interactive facade, kernels vs plain on the card ----------
+    store = os.path.join(ROOT, "artifacts", "chip_smoke")
+    os.makedirs(store, exist_ok=True)
+    # the planner's messages go to a file under the store (a facade adds its
+    # console handlers only to a logger that has none)
+    plog = logging.getLogger("local_trajectory_logger")
+    plog.addHandler(logging.FileHandler(os.path.join(store, "planner.log")))
+    plog.setLevel(logging.INFO)
+    facade_targets = {name: targets[name] for name in FACADE}
+    facade_plain = {
+        "hit_slab": cuda_collision.hit_slab_plain,
+        "window_dp": cuda_window.fused_window_dp_plain,
+        "backtrace": cuda_backtrace.backtrace_walk_plain,
+        "vel_scan": velops.stacked_vel_scan,
+    }
+    tracks = [
+        ("oval", "oval", FACADE_TICKS_OVAL, 0, (15,)),
+        ("unclosed_monteblanco", os.path.join(
+            ROOT, "parity/fixtures/traj_ltpl_unclosed_monteblanco.csv"),
+         FACADE_TICKS_UNCLOSED, FACADE_START_LAYER_UNCLOSED, (40, 95)),
+    ]
+    facade_counts = {}
+    facade_ms = {name: 0.0 for name in FACADE}
+    for tname, track, n_ticks, start_layer, rec_ticks in tracks:
+        pd = {"globtraj_input_path": track,
+              "graph_store_path": os.path.join(store, f"{tname}.npz"),
+              "ltpl_offline_param_path": os.path.join(
+                  ROOT, "params/ltpl_config_offline.ini"),
+              "ltpl_online_param_path": os.path.join(
+                  ROOT, "params/ltpl_config_online.ini"),
+              "graph_log_id": tname,
+              "log_path": os.path.join(store, "logs")}
+        ltpl_k = GraphLTPL(pd, device="cuda")
+        ltpl_k.graph_init()
+        ltpl_p = GraphLTPL(pd, device="cuda", kernels=False,
+                           log_to_file=False)
+        ltpl_p.graph_init()
+        h = ltpl_k._oth
+        pos, heading = cl.start_pose(h.np_refline, start_layer)
+        objs = zones = None
+        if tname == "oval":
+            objs = cl.slow_opponent(h.np_raceline, h.np_normvec, h.np_s_rl)
+            zones = cl.left_half_zone(h.np_nodes_in_layer)
+        for _, path, *_ in KERNELS:
+            wrapper(path).launches = 0
+        recorder = Recorder(facade_targets)
+        recorder.on = False
+
+        def on_tick(tick, _r=recorder, _ticks=rec_ticks):
+            _r.on = (tick + 1) in _ticks
+        t0 = time.perf_counter()
+        with recorder:
+            rec_k = cl.drive(ltpl_k, n_ticks, pos, heading, objs, zones,
+                             on_tick=on_tick)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        counts = {name: wrapper(path).launches for name, path, *_ in KERNELS}
+        _check(all(counts[k] > 0 for k in FACADE),
+               f"facade {tname}: a kernel was not launched: {counts}")
+        t0 = time.perf_counter()
+        rec_p = cl.drive(ltpl_p, n_ticks, pos, heading, zones=zones,
+                         replay=rec_k)
+        t_p = time.perf_counter() - t0
+        d_pos, d_vx, seen = cl.compare(rec_k, rec_p)
+        _check(d_pos <= 2e-3 and d_vx <= 0.02,
+               f"facade {tname}: trajs deviate by {d_pos} m, {d_vx} m/s")
+        for r in rec_k:
+            for trajs in r["traj_set"].values():
+                for t in trajs:
+                    _check(t.ndim == 2 and t.shape[1] == 7
+                           and bool(np.isfinite(t).all()),
+                           f"facade {tname}: bad trajectory {t.shape}")
+        if tname == "oval":
+            _check(seen == {"straight", "follow", "left", "right",
+                            "emergency"}, f"facade oval: actions {seen}")
+            facade_counts = {k: v / n_ticks for k, v in counts.items()}
+        per_tick = {k: round(v / n_ticks, 3) for k, v in counts.items()
+                    if v}
+        print(f"facade {tname} {n_ticks} ticks (start layer {start_layer}) "
+              f"on {card}: kernel launches {counts} = per tick {per_tick}; "
+              f"action sets and node chains equal on every tick, actions "
+              f"{sorted(seen)}; max|d s,x,y|={d_pos:.3g} m max|d vx|="
+              f"{d_vx:.3g} m/s; kernel drive {t_k:.1f} s, plain replay "
+              f"{t_p:.1f} s", flush=True)
+
+        # every kernel call of the recorded ticks against its plain version
+        n_inf = 0
+        for name in FACADE:
+            kern = getattr(*facade_targets[name])
+            _check(recorder.calls[name],
+                   f"facade {tname}: no {name} call recorded")
+            for a, kw in recorder.calls[name]:
+                ko = kern(*a, **kw)
+                po = facade_plain[name](*a, **kw)
+                torch.cuda.synchronize()
+                ko_t = ko if isinstance(ko, tuple) else (ko,)
+                po_t = po if isinstance(po, tuple) else (po,)
+                err = max(float((x.double() - y.double()).abs().max())
+                          for x, y in zip(ko_t, po_t))
+                if name == "vel_scan":
+                    n_inf += int(torch.isinf(a[7]).any(dim=1).sum())
+                    _check(err <= 1e-4, f"facade {name}: |kernel - plain| "
+                           f"{err}")
+                else:
+                    for x, y in zip(ko_t, po_t):
+                        _check(torch.equal(x, y),
+                               f"facade {name}: not bit-equal")
+                ms = _median_ms(lambda: kern(*a, **kw), 20)
+                if tname == "oval":
+                    facade_ms[name] += ms
+                stats[name]["err"] = max(stats[name]["err"], err)
+                shape = "x".join(str(d) for d in a[0].shape)
+                print(f"kernel {name} facade {tname} ticks "
+                      f"{list(rec_ticks)} call [{shape}]: max|kernel-plain|="
+                      f"{err:.3g} kernel {ms:.4f} ms", flush=True)
+        print(f"facade {tname}: velocity rows with a +inf limit checked: "
+              f"{n_inf}", flush=True)
+
+    # ---- 8. facade latency on the real clock -------------------------------
+    pd_lat = dict(pd, globtraj_input_path="oval",
+                  graph_store_path=os.path.join(store, "oval.npz"))
+    ltpl_t = GraphLTPL(pd_lat, device="cuda", log_to_file=False)
+    ltpl_t.graph_init()
+    h = ltpl_t._oth
+    pos, heading = cl.start_pose(h.np_refline)
+    timings = []
+    cl.drive(ltpl_t, 100, pos, heading,
+             cl.slow_opponent(h.np_raceline, h.np_normvec, h.np_s_rl),
+             cl.left_half_zone(h.np_nodes_in_layer), fake_clock=False,
+             timings=timings)
+    tt = np.asarray(timings[5:]) * 1e3
+    lat_p50, lat_p99 = np.percentile(tt, 50), np.percentile(tt, 99)
+    print(f"facade latency (oval, calc_paths + calc_vel_profile, ticks "
+          f"5-99) on {card}: p50 {lat_p50:.2f} ms p99 {lat_p99:.2f} ms max "
+          f"{tt.max():.2f} ms (budget 100 ms)", flush=True)
+    _check(lat_p99 < 1000.0, f"facade latency p99 {lat_p99} ms")
+
+    # ---- 9. summary lines -------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]
+        main = dense_counts if name == "minplus" else launches
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                         launches=launches[name], max_abs_err=s["err"],
+                         launches=main[name], max_abs_err=s["err"],
                          ms=s["ms"], plain_ms=s["plain_ms"],
                          bound_ms=s["bound_ms"], bound_by=s["bound_by"],
-                         library_ms=None))
+                         library_ms=None,
+                         launches_fleet_tick=launches.get(name, 0),
+                         launches_facade_tick=facade_counts.get(name, 0.0),
+                         launches_dense_window=dense_counts[name],
+                         facade_tick_ms=facade_ms.get(name)))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -520,3 +520,44 @@ def load_lattice(path: str) -> Optional[Lattice]:
             v = v.decode()
         meta[k] = v
     return lattice_from_numpy(arrays, meta)
+
+
+def load_or_build(globtraj, cfg_path: str, store_path: str,
+                  force_recalc: bool = False, graph_id: str = "torch0"):
+    """md5-keyed load-or-rebuild of the lattice artifact
+    (main_offline_callback.py:56-74), in the JAX package's npz format and
+    with its cache key, so either package reads the other's artifact.
+
+    ``globtraj`` may be a CSV path, the name of a built-in synthetic track
+    (``"oval"``) or a :class:`GlobalTrajectory`; the key covers the track
+    data and the offline INI in every case.  Returns ``(lattice on the CPU,
+    built_now)``.
+    """
+    import hashlib
+
+    from graphbasedlocaltrajectoryplanner_torch.models.track import (
+        import_globtraj_csv, make_oval_track)
+    from graphbasedlocaltrajectoryplanner_torch.utils.config import md5_file
+
+    gt = None
+    if isinstance(globtraj, GlobalTrajectory):
+        gt = globtraj
+    elif globtraj == "oval":
+        gt = make_oval_track()
+    if gt is not None:
+        h = hashlib.md5()
+        for f in dataclasses.fields(gt):
+            h.update(np.ascontiguousarray(getattr(gt, f.name)).tobytes())
+        md5 = h.hexdigest() + md5_file(cfg_path)
+    else:
+        md5 = md5_file(globtraj) + md5_file(cfg_path)
+    if not force_recalc:
+        lat = load_lattice(store_path)
+        if lat is not None and lat.md5_params == md5:
+            return lat, False
+    cfg = OfflineConfig.from_ini(cfg_path)
+    if gt is None:
+        gt = import_globtraj_csv(globtraj)
+    lat = build_lattice(gt, cfg, md5_params=md5, graph_id=graph_id)
+    save_lattice(lat, store_path)
+    return lat, True

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("hit_slab", "window_dp", "backtrace", "vel_scan")
+SOURCES = ("hit_slab", "window_dp", "backtrace", "vel_scan", "minplus")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
@@ -88,6 +88,7 @@ _ENTRY = {
     "backtrace": ("backtrace_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "vel_scan": ("vel_scan_launch",
                  [_P] * 11 + [_I, _P, _I, _I, _I] + [_F] * 7 + [_P]),
+    "minplus": ("minplus_launch", [_P] * 4 + [_I] * 3 + [_P]),
 }
 
 

@@ -7,7 +7,9 @@ path from a start node to every node of every window layer is one sweep of
     best[h+1, m] = min_n best[h, n] + W[h, n, m]
 
 with argmin backpointers (ties to the lowest n).  Infeasibility is a large
-finite cost (``INF``) so arithmetic stays NaN-free.
+finite cost (``INF``) so arithmetic stays NaN-free.  On the card the sweep
+is the kernel of ``ops/cuda_minplus.py`` and the walk that of
+``ops/cuda_backtrace.py`` (:func:`search_window`).
 """
 
 from __future__ import annotations
@@ -65,3 +67,64 @@ def backtrace(bp: torch.Tensor, h_eff, goal_node):
         carry = torch.where(h <= h_eff, node, carry)
         out[h] = node
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+def select_goal(best: torch.Tensor, vg_cost: torch.Tensor, h_goal,
+                shrink_horizon):
+    """Goal layer and node per row, with the optional horizon shrink.
+
+    :param best: (..., H+1, N) DP frontiers; ``vg_cost`` the same shape
+        (>= INF for invalid nodes).
+    :param h_goal: (...,) requested horizon (1..H).
+    :param shrink_horizon: (...,) bool — fall back to the largest feasible
+        h <= h_goal (straight/follow) or take h_goal only (left/right).
+    :returns: (h_eff, goal_node, cost, feasible), each (...,); ``h_eff`` is
+        0 and ``feasible`` False where no horizon works.
+    """
+    *lead, Hp1, N = best.shape
+    dev = best.device
+    goal_tot = best + vg_cost
+    layer_min = torch.amin(goal_tot, dim=-1)                     # (..., H+1)
+    hs = torch.arange(Hp1, device=dev)
+    h_goal = torch.as_tensor(h_goal, device=dev).long().expand(lead)
+    shrink = torch.as_tensor(shrink_horizon, device=dev).expand(lead)
+    feas = (layer_min < FEAS_THRESH) & (hs >= 1) & (hs <= h_goal[..., None])
+    h_shrunk = torch.amax(torch.where(feas, hs, 0), dim=-1)
+    at_goal = torch.gather(feas, -1, h_goal.clamp(0, Hp1 - 1)[..., None])
+    h_exact = torch.where(at_goal[..., 0], h_goal, 0)
+    h_eff = torch.where(shrink, h_shrunk, h_exact)
+    row = torch.gather(goal_tot, -2,
+                       h_eff[..., None, None].expand(*lead, 1, N))[..., 0, :]
+    goal_node = torch.argmin(row, dim=-1)
+    cost = torch.gather(row, -1, goal_node[..., None])[..., 0]
+    return (h_eff.to(torch.int32), goal_node.to(torch.int32), cost,
+            h_eff >= 1)
+
+
+def search_window(w_window, start_node, vg_cost, h_goal, shrink_horizon,
+                  kernels: bool = True):
+    """DP, goal selection and backtrace per row over materialized windows
+    ``w_window`` (..., H, N, N).  With ``kernels`` the sweep and the walk go
+    through the CUDA kernels' wrappers (their plain versions on CPU
+    tensors); ``kernels=False`` takes the plain versions on any device.
+
+    :returns: dict(nodes (..., H+1) int32, h_eff, goal_node, cost,
+        feasible), the start node at h = 0 of feasible rows, -1 otherwise.
+    """
+    from graphbasedlocaltrajectoryplanner_torch.ops import (
+        cuda_backtrace, cuda_minplus)
+    scan = (cuda_minplus.minplus_scan if kernels
+            else cuda_minplus.minplus_scan_plain)
+    walk = (cuda_backtrace.backtrace_walk if kernels
+            else cuda_backtrace.backtrace_walk_plain)
+    *lead, H, N, _ = w_window.shape
+    dev = w_window.device
+    start = torch.as_tensor(start_node, device=dev).long().expand(lead)
+    best, bp = scan(w_window, start)
+    h_eff, goal_node, cost, feasible = select_goal(best, vg_cost, h_goal,
+                                                   shrink_horizon)
+    nodes = walk(bp.reshape(-1, H + 1, N), goal_node.reshape(-1),
+                 h_eff.reshape(-1)).reshape(*lead, H + 1)
+    nodes[..., 0] = torch.where(feasible, start, -1).to(nodes.dtype)
+    return dict(nodes=nodes, h_eff=h_eff, goal_node=goal_node, cost=cost,
+                feasible=feasible)

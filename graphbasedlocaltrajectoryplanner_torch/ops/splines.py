@@ -188,3 +188,23 @@ def spline_lengths(coeffs, n_interp: int = 15):
     t_b = t.expand(coeffs.shape[:-2] + (n_interp,))
     pts = eval_spline(coeffs[..., None, :, :], t_b)
     return torch.sum(_norm2(pts[..., 1:, :] - pts[..., :-1, :]), dim=-1)
+
+
+def sample_uniform(coeffs, stepsize_approx: float, s_max: int,
+                   n_interp: int = 15):
+    """Sample one cubic segment ``coeffs`` (4, 2) t-uniformly, padded to
+    ``s_max`` points (tph ``interp_splines(..., stepsize_approx,
+    incl_last_point=True)`` on a single segment, gen_edges.py:128-131):
+    ``ceil(length / step) + 1`` points, at least 2.
+
+    Returns (points (s_max, 2), t_values (s_max,), n_pts 0-dim int32,
+    length); padding repeats the end point (t = 1).
+    """
+    length = spline_lengths(coeffs, n_interp)
+    n_pts = torch.clamp(
+        torch.ceil(length / stepsize_approx).to(torch.int32) + 1, max=s_max)
+    n_pts = torch.clamp(n_pts, min=2)
+    idx = torch.arange(s_max, device=coeffs.device)
+    t_vals = torch.clamp(idx / torch.clamp(n_pts - 1, min=1), max=1.0)
+    pts = eval_spline(coeffs, t_vals)
+    return pts, t_vals, n_pts, length

@@ -77,6 +77,9 @@ def stacked_vel_scan(k1, axm1, aym1, k2, axm2, aym2, ds, v_lim, v_init, mode,
     m_t = torch.tensor(m_veh, dtype=k1.dtype, device=k1.device)
     is_fwd = mode == MODE_FWD
     is_brake = mode == MODE_BRAKE
+    # a mode no row runs needs no candidate (one host read per call)
+    has_fwd, has_brake = bool(is_fwd.any()), bool(is_brake.any())
+    has_bwd = bool((mode == MODE_BWD).any())
     v = v_init.to(k1.dtype)
     out = [v]
     for t in range(k1.shape[1]):
@@ -84,19 +87,24 @@ def stacked_vel_scan(k1, axm1, aym1, k2, axm2, aym2, ds, v_lim, v_init, mode,
         vl_ = v_lim[:, t]
         a_t = _ax_tires(v, k1[:, t], axm1[:, t], aym1[:, t], dyn_model_exp)
         drag = v * v * drag_coeff / m_t
-        a_m = _interp(v, xp, fp)
-        acc = torch.minimum(a_t, a_m) - drag
-        v_f = torch.minimum(
-            torch.sqrt(torch.clamp(v * v + 2.0 * acc * d_, min=0.0)), vl_)
         dec = a_t + drag
-        v_b = torch.sqrt(torch.clamp(v * v - 2.0 * dec * d_, min=0.0))
-        v_est = torch.sqrt(v * v + 2.0 * dec * d_)
-        a_t2 = _ax_tires(v_est, k2[:, t], axm2[:, t], aym2[:, t],
-                         dyn_model_exp)
-        dec2 = a_t2 + v_est * v_est * drag_coeff / m_t
-        v_r = torch.minimum(
-            torch.sqrt(torch.clamp(
-                v * v + 2.0 * torch.minimum(dec, dec2) * d_, min=0.0)), vl_)
+        v_f = v_b = v_r = v
+        if has_fwd:
+            a_m = _interp(v, xp, fp)
+            acc = torch.minimum(a_t, a_m) - drag
+            v_f = torch.minimum(
+                torch.sqrt(torch.clamp(v * v + 2.0 * acc * d_, min=0.0)), vl_)
+        if has_brake:
+            v_b = torch.sqrt(torch.clamp(v * v - 2.0 * dec * d_, min=0.0))
+        if has_bwd:
+            v_est = torch.sqrt(v * v + 2.0 * dec * d_)
+            a_t2 = _ax_tires(v_est, k2[:, t], axm2[:, t], aym2[:, t],
+                             dyn_model_exp)
+            dec2 = a_t2 + v_est * v_est * drag_coeff / m_t
+            v_r = torch.minimum(
+                torch.sqrt(torch.clamp(
+                    v * v + 2.0 * torch.minimum(dec, dec2) * d_, min=0.0)),
+                vl_)
         v = torch.where(is_fwd, v_f, torch.where(is_brake, v_b, v_r))
         out.append(v)
     return torch.stack(out, dim=1)

@@ -24,12 +24,7 @@ from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
 from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
 from graphbasedlocaltrajectoryplanner_torch.ops import dynshift
 from graphbasedlocaltrajectoryplanner_torch.ops import projection as proj
-from graphbasedlocaltrajectoryplanner_torch.ops.cuda_backtrace import (
-    backtrace_walk, backtrace_walk_plain)
-from graphbasedlocaltrajectoryplanner_torch.ops.cuda_collision import (
-    hit_slab, hit_slab_plain)
-from graphbasedlocaltrajectoryplanner_torch.ops.cuda_window import (
-    fused_window_dp, fused_window_dp_plain)
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_backtrace
 from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
 from graphbasedlocaltrajectoryplanner_torch.planner import velplan as vp
 
@@ -242,21 +237,10 @@ def _batched_window(lat: Lattice, scen: Scenario, zone_block,
     """Obstacle selection, slab hit masks, the window DP and the per-slot
     virtual-goal vectors for the whole batch."""
     obs = _select_obstacle(lat, scen)
-    pre = pg.window_meta(lat, scen.start_layer, scen.obj_pos,
-                         scen.obj_radius, scen.obj_active, obs["obs_layer"],
-                         obs["obs_node"], obs["obs_found"])
-    hit = (hit_slab if kernels else hit_slab_plain)(
-        lat.samples_xy, pre["slab_layers"], scen.obj_pos, pre["ref2"],
-        pre["obj_app"])
-    best, bp = (fused_window_dp if kernels else fused_window_dp_plain)(
-        lat.w, zone_block, scen.start_layer, scen.start_node,
-        pre["slab_layers"], hit, pre["p_obs"], pre["in_win"],
-        obs["obs_node"], scen.last_nodes, w_last_factors,
-        closed=bool(lat.closed), h_max=int(lat.H_max))
-    vg = pg.window_vg(lat, pre["win_layers"], zone_block, pre["p_obs"],
-                      pre["in_win"], obs["obs_node"])
-    window = dict(best=best, bp=bp, vg=vg, win_layers=pre["win_layers"],
-                  h_goal=pre["h_goal"])
+    window = pg.plan_window_kernel(
+        lat, scen.start_layer, scen.start_node, zone_block, scen.obj_pos,
+        scen.obj_radius, scen.obj_active, obs["obs_layer"], obs["obs_node"],
+        obs["obs_found"], scen.last_nodes, w_last_factors, kernels=kernels)
     return obs, window
 
 
@@ -399,7 +383,8 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
     goal_node = torch.argmin(goal_tot, dim=-1)                      # (B, 4)
     cost_all = torch.gather(goal_tot, 2, goal_node[..., None])[..., 0]
     bp_sel = out["bp"][r4, src4]                                # (B,4,H+1,N)
-    walk = backtrace_walk if kernels else backtrace_walk_plain
+    walk = (cuda_backtrace.backtrace_walk if kernels
+            else cuda_backtrace.backtrace_walk_plain)
     nodes4 = walk(bp_sel.reshape(B * 4, H + 1, N), goal_node.reshape(B * 4),
                   h_safe.reshape(B * 4)).reshape(B, 4, H + 1).long()
     end_nodes = torch.gather(nodes4, 2, h_safe[..., None])[..., 0]

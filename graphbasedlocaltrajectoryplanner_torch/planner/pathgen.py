@@ -6,7 +6,10 @@ scenario: the masked window DP (zones for every slot, object-blocked edges
 for straight/left/right, overtake splits for left/right, the
 ``w_last_edges`` discount), the virtual-goal vectors, the backtrace and the
 C2-refit path assembly.  Every function takes a leading scenario (or row)
-dimension instead of being vmapped.
+dimension instead of being vmapped.  With ``kernels`` (the default) the
+window DP, the backtrace and the dense window's min-plus sweep go through
+the CUDA kernels' wrappers, which take their plain versions on CPU
+tensors; ``kernels=False`` takes the plain versions on any device.
 """
 
 from __future__ import annotations
@@ -17,10 +20,10 @@ from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
 from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
 from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
 from graphbasedlocaltrajectoryplanner_torch.ops import splines as spl
-from graphbasedlocaltrajectoryplanner_torch.ops.cuda_collision import (
-    hit_slab_plain)
-from graphbasedlocaltrajectoryplanner_torch.ops.cuda_window import (
-    fused_window_dp_plain)
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_backtrace
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_collision
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_minplus
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_window
 from graphbasedlocaltrajectoryplanner_torch.ops.heading import (
     heading_to_dir, dir_to_heading)
 from graphbasedlocaltrajectoryplanner_torch.ops.search import INF
@@ -62,8 +65,9 @@ def window_prelude(lat: Lattice, start_layer, obj_pos, obj_radius,
     plain formulation."""
     pre = window_meta(lat, start_layer, obj_pos, obj_radius, obj_active,
                       obs_layer, obs_node, obs_found)
-    pre["hit_slab"] = hit_slab_plain(lat.samples_xy, pre["slab_layers"],
-                                     obj_pos, pre["ref2"], pre["obj_app"])
+    pre["hit_slab"] = cuda_collision.hit_slab_plain(
+        lat.samples_xy, pre["slab_layers"], obj_pos, pre["ref2"],
+        pre["obj_app"])
     return pre
 
 
@@ -91,22 +95,110 @@ def window_vg(lat: Lattice, win_layers, zone_block, p_obs, in_win, obs_node):
 
 def plan_window_kernel(lat: Lattice, start_layer, start_node, zone_block,
                        obj_pos, obj_radius, obj_active, obs_layer, obs_node,
-                       obs_found, last_nodes, w_last_factors):
-    """Masked 4-slot DP for a batch of scenarios, plain formulation.
+                       obs_found, last_nodes, w_last_factors,
+                       kernels: bool = True):
+    """Masked 4-slot DP for a batch of scenarios: the slab hit masks and
+    the window DP (kernels 1 and 2 on the card), then the virtual-goal
+    vectors.
 
     :returns: dict with ``best``/``bp``/``vg`` (B, 4, H+1, N),
         ``win_layers`` (B, H+1), ``h_goal`` (B,).
     """
-    pre = window_prelude(lat, start_layer, obj_pos, obj_radius, obj_active,
-                         obs_layer, obs_node, obs_found)
-    best, bp = fused_window_dp_plain(
-        lat.w, zone_block, start_layer, start_node, pre["slab_layers"],
-        pre["hit_slab"], pre["p_obs"], pre["in_win"], obs_node, last_nodes,
-        w_last_factors, closed=bool(lat.closed), h_max=int(lat.H_max))
+    pre = window_meta(lat, start_layer, obj_pos, obj_radius, obj_active,
+                      obs_layer, obs_node, obs_found)
+    hit = (cuda_collision.hit_slab if kernels
+           else cuda_collision.hit_slab_plain)(
+        lat.samples_xy, pre["slab_layers"], obj_pos, pre["ref2"],
+        pre["obj_app"])
+    best, bp = (cuda_window.fused_window_dp if kernels
+                else cuda_window.fused_window_dp_plain)(
+        lat.w, zone_block, start_layer, start_node, pre["slab_layers"], hit,
+        pre["p_obs"], pre["in_win"], obs_node, last_nodes, w_last_factors,
+        closed=bool(lat.closed), h_max=int(lat.H_max))
     vg = window_vg(lat, pre["win_layers"], zone_block, pre["p_obs"],
                    pre["in_win"], obs_node)
     return dict(best=best, bp=bp, vg=vg, win_layers=pre["win_layers"],
                 h_goal=pre["h_goal"])
+
+
+def plan_window_dense(lat: Lattice, start_layer, start_node, zone_block,
+                      obj_pos, obj_radius, obj_active, obs_layer, obs_node,
+                      obs_found, last_nodes, w_last_factors,
+                      kernels: bool = True):
+    """Dense (materialized-window) variant of :func:`plan_window_kernel`:
+    the masked ``w_all (B, 4, H, N, N)`` is built in full, the object
+    blocks by :func:`ops.collision.edge_block_mask` over every window
+    sample, and the four slots run through the plain min-plus sweep
+    (kernel 6 on the card).  Arguments as :func:`plan_window_kernel`, with
+    a shared ``(L, N)`` zone mask.
+
+    :returns: dict with ``best``/``bp``/``vg`` (B, 4, H+1, N),
+        ``win_layers`` (B, H+1), ``blocked`` (B, H, N, N), ``obj_layer``
+        (B, O), ``h_goal`` (B,) and ``w_all``.
+    """
+    L, N, H = lat.L, lat.N, lat.H_max
+    dev = lat.device
+    B = start_layer.shape[0]
+    bidx = torch.arange(B, device=dev)
+    sl = start_layer.long()
+    h_goal = lat.h_goal_for_start[sl]
+    win_layers = torch.remainder(
+        sl[:, None] + torch.arange(H + 1, device=dev), L)           # (B, H+1)
+    w_win = lat.w[win_layers[:, :H]]                                # (B,H,N,N)
+    if not lat.closed:
+        invalid = (sl[:, None] + torch.arange(H, device=dev)) >= (L - 1)
+        w_win = torch.where(invalid[..., None, None], INF, w_win)
+
+    # zone node blocking (every slot)
+    zb_win = zone_block[win_layers]                                 # (B,H+1,N)
+    w_base = torch.where(zb_win[:, :H, :, None], INF, w_win)
+    w_base = torch.where(zb_win[:, 1:, None, :], INF, w_base)
+
+    # previous-solution discount on the shared base
+    last = last_nodes.long()
+    for i in range(last.shape[1] - 1):
+        a, b = last[:, i], last[:, i + 1]
+        ok = (a >= 0) & (b >= 0)
+        cur = w_base[bidx, i, a.clamp(min=0), b.clamp(min=0)]
+        w_base[bidx, i, a.clamp(min=0), b.clamp(min=0)] = torch.where(
+            ok & (cur < srch.FEAS_THRESH), cur * w_last_factors[i], cur)
+
+    # object edge blocking (straight/left/right)
+    obj_layer = col.object_layers(lat.refline, obj_pos)             # (B, O)
+    blocked = col.edge_block_mask(
+        lat.samples_xy[win_layers[:, :H]], win_layers[:, :H], obj_pos,
+        obj_radius, obj_layer, obj_active, sl, h_goal, L, lat.veh_width,
+        lat.sampled_resolution)
+    w_default = torch.where(blocked, INF, w_base)
+
+    # overtake splits at the obstacle layer: left keeps nodes < obs_node,
+    # right keeps nodes >= obs_node
+    p_obs = torch.remainder(obs_layer.long() - sl, L)
+    in_win = obs_found & (p_obs <= H)
+    node_ids = torch.arange(N, device=dev)
+    at_obs = (torch.arange(H + 1, device=dev)[None, :] == p_obs[:, None]) \
+        & in_win[:, None]                                           # (B, H+1)
+    block_left = at_obs[..., None] \
+        & (node_ids[None, None, :] >= obs_node.long()[:, None, None])
+    block_right = at_obs[..., None] \
+        & (node_ids[None, None, :] < obs_node.long()[:, None, None])
+
+    def node_block(w, nb):
+        w = torch.where(nb[:, :H, :, None], INF, w)
+        return torch.where(nb[:, 1:, None, :], INF, w)
+
+    w_all = torch.stack([w_default, w_base, node_block(w_default, block_left),
+                         node_block(w_default, block_right)], dim=1)
+    vg_win = torch.where(zb_win, INF, lat.vg_cost[win_layers])     # (B,H+1,N)
+    vg = torch.stack([vg_win, vg_win,
+                      torch.where(block_left, INF, vg_win),
+                      torch.where(block_right, INF, vg_win)], dim=1)
+    scan = cuda_minplus.minplus_scan if kernels \
+        else cuda_minplus.minplus_scan_plain
+    best, bp = scan(w_all, start_node.long()[:, None].expand(B, N_SLOTS))
+    return dict(best=best, bp=bp, vg=vg, win_layers=win_layers,
+                blocked=blocked, obj_layer=obj_layer, h_goal=h_goal,
+                w_all=w_all)
 
 
 def feasibility_vectors(best, vg):
@@ -114,13 +206,17 @@ def feasibility_vectors(best, vg):
     return torch.amin(best + vg, dim=-1) < srch.FEAS_THRESH
 
 
-def backtrace_slot(best, bp, vg, h_eff):
+def backtrace_slot(best, bp, vg, h_eff, kernels: bool = True):
     """Goal argmin + backtrace per row at a fixed horizon: ``best``/``bp``/
-    ``vg`` (R, H+1, N), ``h_eff`` (R,) -> (nodes (R, H+1), cost (R,))."""
+    ``vg`` (R, H+1, N), ``h_eff`` (R,) -> (nodes (R, H+1) int32, cost
+    (R,)).  The walk is kernel 3 on the card (the batched form of the JAX
+    package's ``make_backtrace_goal``)."""
     rows = torch.arange(best.shape[0], device=best.device)
     goal_tot = best[rows, h_eff.long()] + vg[rows, h_eff.long()]
     goal_node = torch.argmin(goal_tot, dim=-1)
-    nodes = srch.backtrace(bp, h_eff, goal_node)
+    walk = (cuda_backtrace.backtrace_walk if kernels
+            else cuda_backtrace.backtrace_walk_plain)
+    nodes = walk(bp, goal_node, h_eff)
     return nodes, goal_tot[rows, goal_node]
 
 
@@ -198,7 +294,9 @@ def assemble_action_kernel(lat: Lattice, packed, win_layers, nodes, h_eff,
     :param packed: :func:`packed_edge_table` of ``lat``.
     :param win_layers: (R, H+1); ``nodes`` (R, H+1) window node chains
         (-1 pad); ``h_eff`` (R,) >= 1; ``psi_s`` (R,) start headings.
-    :returns: dict(path (R, p_max, 5) [x y psi kappa el], n_valid (R,))
+    :returns: dict(path (R, p_max, 5) [x y psi kappa el], n_valid (R,),
+        node_idx (R, H+1) int32 path row of each chain node, coeffs
+        (R, H, 8) refit coefficients [x a0..a3, y a0..a3])
     """
     H = lat.H_max
     dev = nodes.device
@@ -276,4 +374,6 @@ def assemble_action_kernel(lat: Lattice, packed, win_layers, nodes, h_eff,
     fin = torch.stack([pt_f[:, 0], pt_f[:, 1], psi_f, kappa_f,
                        torch.zeros_like(psi_f)], dim=-1)
     path = torch.where(tail[..., None], fin[:, None, :], path)
-    return dict(path=path, n_valid=n_valid)
+    coeffs_flat = torch.cat([coeffs[..., 0], coeffs[..., 1]], dim=-1)
+    return dict(path=path, n_valid=n_valid,
+                node_idx=node_idx.to(torch.int32), coeffs=coeffs_flat)

@@ -1,6 +1,8 @@
-"""Per-action velocity planning for the batched fleet tick (torch, fb
-backend) — counterpart of the JAX package's ``planner/velplan.py``
-(``opponent_summary``, ``velocity_stage_scenario``, ``emergency_kernel``).
+"""Per-action velocity planning (torch, fb backend) — counterpart of the
+JAX package's ``planner/velplan.py``: ``opponent_summary``,
+``velocity_stage_scenario`` and ``emergency_kernel`` for the batched fleet
+tick, ``velocity_kernel`` and ``brake_on_backup_kernel`` for the
+interactive handler.
 
 Everything works on fixed-size padded rows with a leading scenario
 dimension B: element lengths are zero at and beyond the true path end, and
@@ -325,3 +327,225 @@ def emergency_kernel(traj, gg, kernels: bool = True):
     a_brake = torch.cat([a_brake, torch.zeros_like(a_brake[..., :1])], dim=-1)
     return torch.cat([traj[..., 0:5], v_brake[..., None],
                       a_brake[..., None]], dim=-1)
+
+
+def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
+                    vel_max, gg_scale, old_gg_scale, machines, v_max_offset,
+                    is_follow, red_len, v_end_rl, obj_dist, v_obj, safety_d,
+                    opp_stop_dist, roll_vel, roll_cum, veh_length, ctrl_cp,
+                    ctrl_kd, ctrl_kp, ctrl_tanw, dyn_model_exp, drag_coeff,
+                    m_veh, control_type: str = "PD", filt_window: int = 1,
+                    kernels: bool = True):
+    """Full fb velocity profile of R actions of one tick (OTH:736-941).
+
+    Per action: ``path`` (R, P, 5) [x y psi kappa el] cut at the ego
+    position, ``n_valid``, ``is_follow``, ``red_len``, ``v_end_rl``,
+    ``obj_dist``, ``v_obj`` (R,) and the unscaled local gg (R, P, 2).
+    Shared by the tick: ``vel_course`` (P,) and ``c_len`` (the committed
+    delay-compensation course), ``roll_vel``/``roll_cum`` (F_CAP,) and the
+    scalars, as 0-dim float32 tensors (``dyn_model_exp``, ``drag_coeff``,
+    ``m_veh`` as floats).  The eight recurrences of each action (brake
+    prefix; follow's ego brake, segment-2 forward and backward and the
+    unconstrained forward and backward; the normal forward and backward)
+    run as four dependency levels of one stacked scan each, with per-step
+    gg streams: kernel 5 on the card.
+
+    :returns: dict(traj (R, P, 7) [s x y psi kappa vx ax], vel_bound (R,),
+        too_close (R,), follow_v_control (R,), follow_control_d)
+    """
+    R, P, _ = path.shape
+    dev = path.device
+    idx = torch.arange(P, device=dev)
+    kappa = path[..., 3]
+    el = path[..., 4]
+    s = _cumsum0(el)
+    gg_s = gg * gg_scale
+    row_inf = torch.full((R, P - 1), math.inf, dtype=path.dtype, device=dev)
+    kabs = torch.abs(kappa)
+    ctrl = {"c_p": ctrl_cp, "k_d": ctrl_kd, "k_p": ctrl_kp, "tan_w": ctrl_tanw}
+    flip = lambda x: torch.flip(x, dims=[-1])                 # noqa: E731
+    vel_plan_r = vel_plan.expand(R)
+
+    def _lvl(rows, modes):
+        cols = list(zip(*rows))
+        n = len(rows)
+        per_step = [torch.stack(c, dim=1).reshape(R * n, P - 1)
+                    for c in cols[:-1]]
+        v_init = torch.stack(cols[-1], dim=1).reshape(R * n)
+        mode = torch.tensor(modes, dtype=torch.int32, device=dev).repeat(R)
+        out = velops.stacked_vel_scan_auto(
+            *per_step[:8], v_init, mode, machines, dyn_model_exp, drag_coeff,
+            m_veh, kernels=kernels)
+        return out.reshape(R, n, P)
+
+    def _brake_row(k_abs, g, e, v0):
+        z = k_abs[:, :-1]
+        return (z, g[:, :-1, 0], g[:, :-1, 1], z, g[:, :-1, 0], g[:, :-1, 1],
+                e[:, :-1], row_inf, v0)
+
+    def _fwd_row(k_abs, g, e, v_bound, v0):
+        z = k_abs[:, :-1]
+        return (z, g[:, :-1, 0], g[:, :-1, 1], z, g[:, :-1, 0], g[:, :-1, 1],
+                e[:, :-1], v_bound[:, 1:], torch.minimum(v_bound[:, 0], v0))
+
+    def _bwd_row(k_abs, g, e, v_f):
+        return (flip(k_abs[:, 1:]), flip(g[:, 1:, 0]), flip(g[:, 1:, 1]),
+                flip(k_abs[:, :-1]), flip(g[:, :-1, 0]), flip(g[:, :-1, 1]),
+                flip(e[:, :-1]), flip(v_f[:, :-1]), v_f[:, -1])
+
+    # ---- level 0: brake prefix to a lowered v_max --------------------------
+    vel_idx = c_len.long()
+    prefix_active = vel_plan > (vel_max + 0.1)
+    el_pref = torch.where(idx < vel_idx, 0.0, el)
+    gg_old = gg * old_gg_scale
+    v_decel = _lvl([_brake_row(kabs, gg_old, el_pref, vel_plan_r)],
+                   [velops.MODE_BRAKE])[:, 0]                     # (R, P)
+    reach = v_decel <= vel_max
+    first_reach = torch.argmax(reach.to(torch.int32), dim=-1)
+    first_reach = torch.where(torch.any(reach, dim=-1), first_reach, P - 1)
+    pref_idx = torch.where(prefix_active, torch.maximum(first_reach, vel_idx),
+                           vel_idx)                               # (R,)
+    vel_start = torch.where(prefix_active, _at(v_decel, pref_idx), vel_plan)
+
+    masked = idx < pref_idx[:, None]
+    kabs_m = torch.abs(torch.where(masked, 0.0, kappa))
+    el_m = torch.where(masked, 0.0, el)
+
+    # ---- follow-mode scalars -----------------------------------------------
+    control_d = ctrl_cp * safety_d + veh_length
+    safety_total = safety_d + veh_length
+    too_close = (obj_dist - safety_total) < 0.0
+    s_f = _cumsum0(el_m)
+    s_stop = obj_dist - safety_total + opp_stop_dist
+    stop_idx = torch.clamp(torch.sum(s_f < s_stop[:, None], dim=-1), 0, P - 1)
+    opp_vel_at = _runout_velocity(
+        roll_vel.expand(R, -1), roll_cum.expand(R, -1),
+        opp_stop_dist - ((obj_dist - safety_total + opp_stop_dist)
+                         - (_at(s, torch.clamp(n_valid - 1, 0, P - 1))
+                            - _at(s, pref_idx))))
+    v_end_f = torch.where(s_stop > s_f[:, -1], opp_vel_at, 0.0)
+    v_control = torch.minimum(torch.clamp(
+        velops.follow_control_vel(ctrl, obj_dist, control_d, v_obj, vel_est,
+                                  control_type), min=0.0), vel_max)
+
+    # ---- normal-branch bounds ----------------------------------------------
+    spl_len = _at(s, torch.clamp(n_valid - 1, 0, P - 1))
+    cum = _cumsum(el[:, :-1])
+    below = cum < (spl_len[:, None] - 5.0)
+    v_idx_red = torch.argmin(below.to(torch.int32), dim=-1) + 1
+    v_idx_red = torch.where((v_idx_red == 1) & (n_valid > 1), n_valid,
+                            v_idx_red)
+    v_idx = torch.where(red_len, v_idx_red, n_valid)
+    v_end = torch.where(red_len, 0.0, v_end_rl)
+    tail = idx >= v_idx[:, None] - 1
+    el_n = torch.where(tail, 0.0, el_m)
+    v_lat = torch.sqrt(gg_s[..., 1] / torch.clamp(kabs_m, min=1e-9))
+    v0_u = torch.minimum(v_lat, vel_max)
+    v0_n = torch.where(tail, torch.minimum(v0_u, v_end[:, None]), v0_u)
+
+    # ---- level 1: ego brake + unconstrained fwd + normal fwd ---------------
+    lvl1 = _lvl([_brake_row(kabs_m, gg_s, el_m, vel_start),
+                 _fwd_row(kabs_m, gg_s, el_m, v0_u, vel_start),
+                 _fwd_row(kabs_m, gg_s, el_n, v0_n, vel_start)],
+                [velops.MODE_BRAKE, velops.MODE_FWD, velops.MODE_FWD])
+    v_ego_brake, vf_u, vf_n = lvl1[:, 0], lvl1[:, 1], lvl1[:, 2]
+    ego_stop_d = velops.stop_distance(v_ego_brake, el_m)
+
+    # follow segment-1 hand-off
+    seg1_active = (vel_start > v_control) & (stop_idx >= 2)
+    below_c = v_ego_brake <= v_control[:, None]
+    idx_c_raw = torch.argmax(below_c.to(torch.int32), dim=-1)
+    idx_c_raw = torch.where(torch.any(below_c, dim=-1), idx_c_raw, stop_idx)
+    idx_c = torch.where(seg1_active,
+                        torch.minimum(torch.where(idx_c_raw == 0, stop_idx,
+                                                  idx_c_raw), stop_idx),
+                        torch.zeros_like(stop_idx))
+    vx_control_start = torch.where(seg1_active, _at(v_ego_brake, idx_c),
+                                   vel_start)
+    el_seg2 = torch.where(idx < stop_idx[:, None], el_m, 0.0)
+    el_seg2 = torch.where(idx < idx_c[:, None], 0.0, el_seg2)
+    v0_s = torch.minimum(v_lat, v_control[:, None])
+    v0_s = torch.where(idx >= stop_idx[:, None],
+                       torch.minimum(v0_s, v_end_f[:, None]), v0_s)
+
+    # ---- level 2: seg2 fwd + unconstrained bwd + normal bwd ----------------
+    lvl2 = _lvl([_fwd_row(kabs_m, gg_s, el_seg2, v0_s,
+                          torch.minimum(vx_control_start, v_control)),
+                 _bwd_row(kabs_m, gg_s, el_m, vf_u),
+                 _bwd_row(kabs_m, gg_s, el_n, vf_n)],
+                [velops.MODE_FWD, velops.MODE_BWD, velops.MODE_BWD])
+    vf_s = lvl2[:, 0]
+    vx_compl = flip(lvl2[:, 1])
+    vx_normal = flip(lvl2[:, 2])
+
+    # ---- level 3: seg2 bwd -------------------------------------------------
+    v_seg2 = flip(_lvl([_bwd_row(kabs_m, gg_s, el_seg2, vf_s)],
+                       [velops.MODE_BWD])[:, 0])
+
+    # ---- follow assembly ---------------------------------------------------
+    follow_bound = torch.abs(_at(v_seg2, idx_c) - vx_control_start) <= 1.0
+    follow_bound &= ~((~seg1_active) & (stop_idx < 2))
+    vx_follow = torch.where(idx < idx_c[:, None], v_ego_brake, v_seg2)
+    vx_follow = torch.where(idx > stop_idx[:, None], 0.0, vx_follow)
+    follow_bound &= torch.abs(vx_follow[:, 0] - vel_start) <= 1.0
+    cannot_hold = ego_stop_d >= s_stop
+    vx_follow = torch.where(cannot_hold[:, None], v_ego_brake, vx_follow)
+    follow_bound = torch.where(cannot_hold, True, follow_bound)
+    vx_follow = torch.minimum(vx_follow, vx_compl)
+
+    # ---- normal assembly ---------------------------------------------------
+    vx_normal = torch.where(idx >= v_idx[:, None], 0.0, vx_normal)
+    degenerate = (v_idx - pref_idx) <= 1
+    vx_normal = torch.where(degenerate[:, None], 0.0, vx_normal)
+    normal_bound = torch.abs(_at(vx_normal, pref_idx) - vel_start) \
+        < v_max_offset
+    normal_bound = torch.where(degenerate, False, normal_bound)
+
+    # ---- select / merge, then the course, the prefix and the branch --------
+    use_normal = ~is_follow
+    use_merge = is_follow & red_len
+    vx_branch = torch.where(
+        use_normal[:, None], vx_normal,
+        torch.where(use_merge[:, None], torch.minimum(vx_follow, vx_normal),
+                    vx_follow))
+    vel_bound = torch.where(use_normal, normal_bound, follow_bound)
+    vx_full = torch.where(idx < vel_idx, vel_course,
+                          torch.where(masked, v_decel, vx_branch))
+    vx_f = velops.conv_filt(vx_full, filt_window)
+    ax = velops.calc_ax_profile(vx_f, el)
+    stationary = torch.isclose(vx_f[:, :-1], torch.zeros_like(ax)) \
+        & torch.isclose(ax, torch.zeros_like(ax)) \
+        & (idx[:-1] < n_valid[:, None] - 1)
+    ax = torch.where(stationary, -5.0, ax)
+    ax_f = torch.cat([ax, torch.zeros_like(ax[:, :1])], dim=-1)
+    traj = torch.stack([s, path[..., 0], path[..., 1], path[..., 2],
+                        path[..., 3], vx_f, ax_f], dim=-1)
+    return dict(traj=traj, vel_bound=vel_bound, too_close=too_close,
+                follow_v_control=v_control, follow_control_d=control_d)
+
+
+def brake_on_backup_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
+                           dyn_model_exp, drag_coeff, m_veh,
+                           kernels: bool = True):
+    """Recursive-infeasibility fallback: full deceleration on the backup
+    path (OTH:950-1006, VpForwardBackward.calc_vel_brake_em — no gg
+    scale).  ``path`` (P, 5), ``gg`` (P, 2), ``vel_course`` (P,); returns
+    (P, 7) [s x y psi kappa vx ax].  The brake row is kernel 5 on the
+    card."""
+    P = path.shape[0]
+    idx = torch.arange(P, device=path.device)
+    kappa = path[:, 3]
+    el = path[:, 4]
+    el_m = torch.where(idx < c_len, 0.0, el)
+    vx = velops.calc_vel_profile_brake_auto(
+        kappa[None], el_m[None], gg[None], vel_plan.reshape(1),
+        dyn_model_exp, drag_coeff, m_veh, kernels=kernels)[0]
+    vx_full = torch.where(idx < c_len, vel_course, vx)
+    ax = velops.calc_ax_profile(vx_full, el)
+    stationary = torch.isclose(vx_full[:-1], torch.zeros_like(ax)) \
+        & torch.isclose(ax, torch.zeros_like(ax)) & (idx[:-1] < n_valid - 1)
+    ax = torch.where(stationary, -5.0, ax)
+    ax_f = torch.cat([ax, torch.zeros_like(ax[:1])])
+    s = _cumsum0(el)
+    return torch.stack([s, path[:, 0], path[:, 1], path[:, 2], path[:, 3],
+                        vx_full, ax_f], dim=-1)
