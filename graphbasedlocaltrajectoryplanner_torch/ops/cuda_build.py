@@ -3,8 +3,8 @@
 Each source is compiled on its own by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds).  Builds happen at first use, into ``_build/`` inside
-the package (listed in ``.gitignore``), keyed by a hash of the source and
-the flags; :func:`build_all` starts every missing build at once.
+the package (listed in ``.gitignore``), keyed by a hash of the source, the headers
+(``csrc/*.cuh``) and the flags; :func:`build_all` starts every missing build at once.
 
 Flags: ``sm_90a``, ``-O3``, and ``-fmad=false`` without fast math, so
 every product rounds on its own as in the plain PyTorch versions (an FMA
@@ -45,6 +45,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):     # shared by the sources
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{key}.so"
 

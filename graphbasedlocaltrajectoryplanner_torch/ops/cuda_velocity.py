@@ -1,8 +1,9 @@
 """Stacked velocity recurrences: the CUDA kernel template
 ``csrc/vel_scan.cu`` and its plain PyTorch version
 (``ops/velocity.stacked_vel_scan``) — counterpart of the JAX package's
-``ops/pallas_velocity.py``.  Two instances, each with its own wrapper and
-launch count: :func:`vel_scan_cgg` (one constant local gg, the velocity
+``ops/pallas_velocity.py``.  The kernel regroups the rows by mode itself
+(one warp per mode in every tile of 32 rows), so callers stack rows in any
+order.  Two instances, each with its own wrapper and launch count: :func:`vel_scan_cgg` (one constant local gg, the velocity
 stage) and :func:`vel_scan` (per-step gg streams, the brake rows of the
 opponent summary and the emergency profile).
 """
@@ -15,6 +16,10 @@ import torch
 
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_build as cb
 from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
+
+# steps per shared-memory chunk of the kernel (``CH`` in csrc/vel_scan.cu):
+# the T at which its tiling changes shape, for the tests of ragged shapes
+CHUNK = 16
 
 
 def _launch(k1, gg, k2, ds, v_lim, v_init, mode, machines, exp, drag, m_veh,
