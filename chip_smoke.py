@@ -12,8 +12,9 @@ unclosed Monteblanco lattice with the port's builder, then:
    a CUDA graph and replayed between two CUDA events, so the host is not
    in the reading) and the time of one call of the wrapper — beside the
    least time the card could take for the same work; then holds both
-   velocity-scan instances against the plain version, bit-equal, on
-   seeded inputs at ragged shapes the main paths do not reach, and their
+   velocity-scan instances, the window DP and the slab-hit kernel against
+   their plain versions, bit-equal, on seeded inputs at ragged shapes the
+   main paths do not reach, and the velocity scans'
    branch-free division and square root (``csrc/ieee_fast.cuh``) against
    the plain operators on every float32 (the root, dividends over a few
    divisors) and on random pairs;
@@ -23,7 +24,9 @@ unclosed Monteblanco lattice with the port's builder, then:
    kernels and with the plain versions on the same card: ``valid``,
    ``h_eff``, ``cost``, ``n_valid``, ``case_a``, ``relabel`` and
    ``em_base`` equal, trajectories within 2 mm and 0.02 m/s, and every
-   kernel's launch count above zero in the kernel tick;
+   kernel's launch count above zero in the kernel tick; the window-DP and
+   slab-hit calls of the second and third mix are held against their plain
+   versions and timed too;
 3. runs the dense-window search (``pathgen.plan_window_dense`` and
    ``search.search_window``, B=1024 on the default oval with 1 opponent)
    through the min-plus kernel: the kernel bit-equal to its plain version,
@@ -87,6 +90,8 @@ KERNELS = [
      TPU + "pallas_minplus.py:90"),
 ]
 FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan")
+# timed in every fleet mix and in the facade, beside their bounds
+REDESIGNED = ("hit_slab", "window_dp")
 # the kernels of the interactive facade's path
 FACADE = ("hit_slab", "window_dp", "backtrace", "vel_scan")
 FACADE_TICKS_OVAL = 150
@@ -225,6 +230,125 @@ def ragged_vel_scans(chunk):
     return n
 
 
+def _cost(name, a, kw, out):
+    """(bytes, operations) that one recorded call of a kernel needs."""
+    out_t = out if isinstance(out, tuple) else (out,)
+    if name == "hit_slab":
+        return _cost_hit_slab(a, out)
+    if name == "window_dp":
+        return _cost_window_dp(a, out_t, kw["h_max"])
+    if name == "backtrace":
+        return _cost_backtrace(a, out)
+    return _cost_vel(a, out, name == "vel_scan_cgg")
+
+
+def _bound(nb, ops):
+    """(bound ms, what bounds it) of that many bytes and operations."""
+    t_b, t_o = nb / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
+    """One recorded call: the kernel held bit-equal to its plain version,
+    then timed on the device and per wrapper call (the plain version too
+    when ``plain_reps``), beside its bound.  Prints a line, returns the
+    numbers."""
+    ko = kern(*a, **kw)
+    po = plain(*a, **kw)
+    torch.cuda.synchronize()
+    ko_t = ko if isinstance(ko, tuple) else (ko,)
+    po_t = po if isinstance(po, tuple) else (po,)
+    err = max(float((x.double() - y.double()).abs().max())
+              for x, y in zip(ko_t, po_t))
+    for x, y in zip(ko_t, po_t):
+        _check(x.shape == y.shape and torch.equal(x, y),
+               f"{name} {where}: not bit-equal, max |kernel - plain| {err}")
+    ms = _device_ms(lambda: kern(*a, **kw))
+    wrapper_ms = _median_ms(lambda: kern(*a, **kw), 30)
+    plain_ms = (_median_ms(lambda: plain(*a, **kw), plain_reps)
+                if plain_reps else None)
+    nb, ops = _cost(name, a, kw, ko)
+    bound_ms, by = _bound(nb, ops)
+    shape = "x".join(str(d) for d in a[0].shape)
+    print(f"kernel {name} {where} {a[0].shape[0]} rows [{shape}]: "
+          f"max|kernel-plain|={err:.3g} (bit-equal) kernel {ms:.4f} ms on "
+          f"the device, {wrapper_ms:.4f} ms a wrapper call; "
+          + (f"plain {plain_ms:.4f} ms " if plain_reps else "")
+          + f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)", flush=True)
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bytes=nb,
+                ops=ops, err=err)
+
+
+def ragged_window_kernels():
+    """The window-DP and the slab-hit kernel against their plain versions,
+    bit-equal, on the seeded raw cases of ``testing_tools/window_cases``:
+    batches and node counts around the kernels' tiles, windows that wrap a
+    short closed track, open tracks near their end, obstacle steps and
+    nodes at their extremes, tied and INF costs, clipped slab layers,
+    objects exactly at their radius; and one case each repeated to a batch
+    of more than 4096.  Returns the numbers of calls compared."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import (cuda_collision,
+                                                            cuda_window)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        window_cases as wc)
+
+    def spoil(shape, dtype):
+        """Leave the allocator a freed block of the size of a kernel's
+        output that holds neither a valid result nor zeros, so that what a
+        kernel does not write shows in the comparison."""
+        t = torch.empty(shape, dtype=dtype, device="cuda")
+        t.view(torch.uint8).fill_(0xA5)
+        del t
+
+    def on_card(case, keys, wide):
+        """The case's tensors; every other case with int64 indices, which
+        the kernels read as they are."""
+        ts = [torch.from_numpy(case[k]).cuda() for k in keys]
+        return [t.long() if wide and t.dtype == torch.int32 else t
+                for t in ts]
+    def tiled(case, keys, times):
+        """The case with its batch repeated: thousands of scenarios (the
+        tables and a zone shared by all scenarios stay as they are)."""
+        shared = [k for k in keys if k in ("w", "w_last_factors", "samples_xy")
+                  or (k == "zone_block" and case[k].ndim == 2)]
+        return dict(case, **{k: np.concatenate([case[k]] * times)
+                             for k in keys if k not in shared})
+
+    windows = list(wc.window_cases())
+    windows.append((windows[2][0] + "-x32", tiled(
+        windows[2][1], wc.WINDOW_ARGS, 32)))            # B = 4160
+    hits = list(wc.hit_cases())
+    hits.append((hits[2][0] + "-x16", tiled(
+        hits[2][1], wc.HIT_ARGS, 16)))                  # B = 4112
+    n_w = n_h = 0
+    for label, case in windows:
+        a = on_card(case, wc.WINDOW_ARGS, n_w % 2 == 1)
+        kw = dict(closed=case["closed"], h_max=case["h_max"])
+        po = cuda_window.fused_window_dp_plain(*a, **kw)
+        for x in po:
+            spoil(x.shape, x.dtype)
+        ko = cuda_window.fused_window_dp(*a, **kw)
+        torch.cuda.synchronize()
+        for what, x, y in zip(("best", "bp"), ko, po):
+            _check(x.shape == y.shape and torch.equal(x, y),
+                   f"ragged window_dp {label}: {what} differs in "
+                   f"{int((x != y).sum())} of {x.numel()} places")
+        n_w += 1
+    for label, case in hits:
+        a = on_card(case, wc.HIT_ARGS, n_h % 2 == 1)
+        po = cuda_collision.hit_slab_plain(*a)
+        spoil(po.shape, po.dtype)
+        ko = cuda_collision.hit_slab(*a)
+        torch.cuda.synchronize()
+        _check(ko.shape == po.shape and ko.dtype == po.dtype
+               and torch.equal(ko.view(torch.uint8), po.view(torch.uint8)),
+               f"ragged hit_slab {label}: differs in "
+               f"{int((ko.view(torch.uint8) != po.view(torch.uint8)).sum())}"
+               f" of {ko.numel()} bytes")
+        n_h += 1
+    return n_w, n_h
+
+
 class Recorder:
     """Replaces kernel wrappers by recorders while in a ``with`` block: each
     call is passed on, and its arguments are cloned into ``calls[name]``
@@ -358,53 +482,22 @@ def main():
         tot = dict(ms=0.0, wrapper_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                    err=0.0, bytes=0, ops=0)
         for a, kw in calls[name]:
-            ko = kern(*a, **kw)
-            po = plains[name](*a, **kw)
-            torch.cuda.synchronize()
-            ko_t = ko if isinstance(ko, tuple) else (ko,)
-            po_t = po if isinstance(po, tuple) else (po,)
-            err = max(float((x.double() - y.double()).abs().max())
-                      for x, y in zip(ko_t, po_t))
-            for x, y in zip(ko_t, po_t):
-                _check(torch.equal(x, y), f"{name}: not bit-equal, max "
-                       f"|kernel - plain| {err}")
-            ms = _device_ms(lambda: kern(*a, **kw))
-            wrapper_ms = _median_ms(lambda: kern(*a, **kw), 30)
-            plain_ms = _median_ms(lambda: plains[name](*a, **kw),
-                                  5 if name.startswith("vel") else 20)
-            if name == "hit_slab":
-                nb, ops = _cost_hit_slab(a, ko)
-            elif name == "window_dp":
-                nb, ops = _cost_window_dp(a, ko_t, kw["h_max"])
-            elif name == "backtrace":
-                nb, ops = _cost_backtrace(a, ko)
-            else:
-                nb, ops = _cost_vel(a, ko, name == "vel_scan_cgg")
-            t_b, t_o = nb / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
-            shape = "x".join(str(d) for d in a[0].shape)
-            print(f"kernel {name} call {a[0].shape[0]} rows [{shape}]: "
-                  f"max|kernel-plain|={err:.3g} (bit-equal) kernel "
-                  f"{ms:.4f} ms on the device, {wrapper_ms:.4f} ms a "
-                  f"wrapper call; plain {plain_ms:.4f} ms bound "
-                  f"{max(t_b, t_o):.4f} ms "
-                  f"({'bytes' if t_b >= t_o else 'operations'}: {nb} B, "
-                  f"{ops} ops)", flush=True)
-            tot["ms"] += ms
-            tot["wrapper_ms"] += wrapper_ms
-            tot["plain_ms"] += plain_ms
-            tot["bytes"] += nb
-            tot["ops"] += ops
-            tot["err"] = max(tot["err"], err)
-        t_b = tot["bytes"] / PEAK_BYTES_S * 1e3
-        t_o = tot["ops"] / PEAK_F32_OPS_S * 1e3
-        tot["bound_ms"] = max(t_b, t_o)
-        tot["bound_by"] = "bytes" if t_b >= t_o else "operations"
+            r = held_and_timed(name, "call", kern, plains[name], a, kw,
+                               5 if name.startswith("vel") else 20)
+            for k in ("ms", "wrapper_ms", "plain_ms", "bytes", "ops"):
+                tot[k] += r[k]
+            tot["err"] = max(tot["err"], r["err"])
+        tot["bound_ms"], tot["bound_by"] = _bound(tot["bytes"], tot["ops"])
         stats[name] = tot
 
     n_ragged = ragged_vel_scans(cuda_velocity.CHUNK)
     print(f"ragged shapes: vel_scan and vel_scan_cgg bit-equal to the plain "
           f"version on {n_ragged} seeded calls (R in {vc.RAGGED_R}, T in "
           f"{vc.ragged_t(cuda_velocity.CHUNK)})", flush=True)
+    n_w, n_h = ragged_window_kernels()
+    print(f"ragged shapes: window_dp bit-equal to the plain version on {n_w} "
+          f"seeded calls, hit_slab on {n_h} (testing_tools/window_cases)",
+          flush=True)
 
     # ---- 5. the fleet tick, kernels vs plain, three mixes ------------------
     mixes = [
@@ -419,7 +512,8 @@ def main():
         tick_p = sc.make_batched_tick(lat, device="cuda", kernels=False)
         for _, path, *_ in KERNELS:
             wrapper(path).launches = 0
-        out_k = tick_k(scen)
+        with Recorder({k: targets[k] for k in REDESIGNED}) as mix_rec:
+            out_k = tick_k(scen)
         torch.cuda.synchronize()
         counts = {name: wrapper(path).launches
                   for name, path, *_ in KERNELS[:len(FLEET)]}
@@ -457,6 +551,12 @@ def main():
             torch.cuda.synchronize()
             tp.append(time.perf_counter() - t0)
         t_med, tp_med = float(np.median(ts)), float(np.median(tp))
+        if mix != "oval_1opp":          # that mix's calls were timed above
+            for name in REDESIGNED:
+                for a, kw in mix_rec.calls[name]:
+                    held_and_timed(name, f"{mix} call",
+                                   getattr(*targets[name]), plains[name],
+                                   a, kw, 5)
         print(f"tick {mix} B={B} O={scen.obj_pos.shape[1]} on {card}: "
               f"kernel launches {counts}; equal fields equal; "
               f"max|d pos|={d_pos:.3g} m max|d vx|={d_vx:.3g} m/s; "
@@ -689,10 +789,14 @@ def main():
                     facade_wrapper_ms[name] += wrapper_ms
                 stats[name]["err"] = max(stats[name]["err"], err)
                 shape = "x".join(str(d) for d in a[0].shape)
+                bound = ""
+                if name in REDESIGNED:
+                    b_ms, by = _bound(*_cost(name, a, kw, ko))
+                    bound = f"; bound {b_ms:.5f} ms ({by})"
                 print(f"kernel {name} facade {tname} ticks "
                       f"{list(rec_ticks)} call [{shape}]: max|kernel-plain|="
                       f"{err:.3g} (bit-equal) kernel {ms:.4f} ms on the "
-                      f"device, {wrapper_ms:.4f} ms a wrapper call",
+                      f"device, {wrapper_ms:.4f} ms a wrapper call{bound}",
                       flush=True)
         print(f"facade {tname}: velocity rows with a +inf limit checked: "
               f"{n_inf}", flush=True)

@@ -84,9 +84,9 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 # C entry point and argument types of each source
 _ENTRY = {
-    "hit_slab": ("hit_slab_launch", [_P] * 6 + [_I] * 5 + [_P]),
+    "hit_slab": ("hit_slab_launch", [_P] * 6 + [_I] * 6 + [_P]),
     "window_dp": ("window_dp_launch",
-                  [_P, _P, _LL] + [_P] * 11 + [_I] * 7 + [_P]),
+                  [_P, _P, _LL] + [_P] * 11 + [_I] * 8 + [_P]),
     "backtrace": ("backtrace_launch", [_P] * 4 + [_I] * 3 + [_P]),
     "vel_scan": ("vel_scan_launch",
                  [_P] * 11 + [_I, _P, _I, _I, _I] + [_F] * 7 + [_P]),
@@ -114,11 +114,23 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def index_arg(t: torch.Tensor):
+    """An index tensor as a kernel that reads int32 or int64 takes it:
+    ``(tensor, wide)``, converted to int32 only from another type."""
+    if t.dtype not in (torch.int32, torch.int64):
+        t = t.to(torch.int32)
+    return t.contiguous(), int(t.dtype == torch.int64)
+
+
 def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def check(rc: int, name: str) -> None:
+    if rc == -1:
+        raise ValueError(f"CUDA kernel {name}: the shape needs more threads "
+                         "or shared memory than a block has (or an input "
+                         "is not aligned)")
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
 

@@ -87,6 +87,56 @@ def fused_window_dp_plain(w, zone_block, start_layer, start_node,
     return torch.stack(bests, dim=2), torch.stack(bps, dim=2)
 
 
+def kernel_args(w, zone_block, start_layer, start_node, slab_layers,
+                hit_slab, p_obs, in_win, obs_node, last_nodes,
+                w_last_factors, closed: bool, h_max: int):
+    """``(c_args, best, bp, keep)``: the checked arguments of the kernel's
+    C entry point (all but the stream), the two output tensors it fills,
+    and the converted inputs, which must live until the launch is
+    enqueued."""
+    L, N, _ = w.shape
+    B = start_layer.shape[0]
+    O = slab_layers.shape[1]
+    n_last = last_nodes.shape[1]
+    H = int(h_max)
+    i32 = torch.int32
+    zone = zone_block.contiguous()
+    zone_bstride = L * N if zone.dim() == 3 else 0
+    # the index tensors go as they are, int32 or int64 (bit i of ``wide``)
+    index = dict(start_layer=(start_layer, (B,)),
+                 start_node=(start_node, (B,)),
+                 slab_layers=(slab_layers, (B, O, 2)), p_obs=(p_obs, (B,)),
+                 obs_node=(obs_node, (B,)),
+                 last_nodes=(last_nodes, (B, n_last)))
+    a, wide = {}, 0
+    for i, (k, (t, shape)) in enumerate(index.items()):
+        a[k], is_wide = cb.index_arg(t)
+        wide |= is_wide << i
+        cb.require(a[k], torch.int64 if is_wide else i32, shape, k)
+    a.update(hit_slab=hit_slab.contiguous(), in_win=in_win.contiguous(),
+             w_fac=w_last_factors.to(torch.float32).contiguous())
+    cb.require(w, torch.float32, (L, N, N), "w")
+    cb.require(zone, torch.bool, (B, L, N) if zone.dim() == 3 else (L, N),
+               "zone_block")
+    cb.require(a["in_win"], torch.bool, (B,), "in_win")
+    cb.require(a["hit_slab"], torch.bool, (B, O, 2, N, N), "hit_slab")
+    cb.require(a["w_fac"], torch.float32, (max(n_last - 1, 0),),
+               "w_last_factors")
+    if H < 1 or O < 1:
+        raise ValueError(f"window_dp: h_max {H} and O {O} must be >= 1")
+    best = torch.empty((B, N_SLOTS, H + 1, N), dtype=torch.float32,
+                       device=w.device)
+    bp = torch.empty((B, N_SLOTS, H + 1, N), dtype=i32, device=w.device)
+    c_args = (
+        cb.ptr(w), cb.ptr(zone), ctypes.c_longlong(zone_bstride),
+        cb.ptr(a["start_layer"]), cb.ptr(a["start_node"]),
+        cb.ptr(a["slab_layers"]), cb.ptr(a["hit_slab"]), cb.ptr(a["p_obs"]),
+        cb.ptr(a["in_win"]), cb.ptr(a["obs_node"]), cb.ptr(a["last_nodes"]),
+        cb.ptr(a["w_fac"]), cb.ptr(best), cb.ptr(bp), B, L, N, O, H, n_last,
+        int(bool(closed)), wide)
+    return c_args, best, bp, (zone, *a.values())
+
+
 def fused_window_dp(w, zone_block, start_layer, start_node, slab_layers,
                     hit_slab, p_obs, in_win, obs_node, last_nodes,
                     w_last_factors, closed: bool, h_max: int):
@@ -97,47 +147,10 @@ def fused_window_dp(w, zone_block, start_layer, start_node, slab_layers,
             w, zone_block, start_layer, start_node, slab_layers, hit_slab,
             p_obs, in_win, obs_node, last_nodes, w_last_factors, closed,
             h_max)
-    L, N, _ = w.shape
-    B = start_layer.shape[0]
-    O = slab_layers.shape[1]
-    n_last = last_nodes.shape[1]
-    H = int(h_max)
-    i32 = torch.int32
-    zone = zone_block.contiguous()
-    zone_bstride = L * N if zone.dim() == 3 else 0
-    args = dict(
-        start_layer=start_layer.to(i32).contiguous(),
-        start_node=start_node.to(i32).contiguous(),
-        slab_layers=slab_layers.to(i32).contiguous(),
-        hit_slab=hit_slab.contiguous(),
-        p_obs=p_obs.to(i32).contiguous(),
-        in_win=in_win.contiguous(),
-        obs_node=obs_node.to(i32).contiguous(),
-        last_nodes=last_nodes.to(i32).contiguous(),
-        w_fac=w_last_factors.to(torch.float32).contiguous())
-    cb.require(w, torch.float32, (L, N, N), "w")
-    cb.require(zone, torch.bool, (B, L, N) if zone.dim() == 3 else (L, N),
-               "zone_block")
-    for k in ("start_layer", "start_node", "p_obs", "obs_node"):
-        cb.require(args[k], i32, (B,), k)
-    cb.require(args["in_win"], torch.bool, (B,), "in_win")
-    cb.require(args["slab_layers"], i32, (B, O, 2), "slab_layers")
-    cb.require(args["hit_slab"], torch.bool, (B, O, 2, N, N), "hit_slab")
-    cb.require(args["last_nodes"], i32, (B, n_last), "last_nodes")
-    cb.require(args["w_fac"], torch.float32, (max(n_last - 1, 0),),
-               "w_last_factors")
-    best = torch.empty((B, N_SLOTS, H + 1, N), dtype=torch.float32,
-                       device=w.device)
-    bp = torch.empty((B, N_SLOTS, H + 1, N), dtype=i32, device=w.device)
-    a = args
-    rc = cb.load("window_dp")(
-        cb.ptr(w), cb.ptr(zone), ctypes.c_longlong(zone_bstride),
-        cb.ptr(a["start_layer"]), cb.ptr(a["start_node"]),
-        cb.ptr(a["slab_layers"]), cb.ptr(a["hit_slab"]), cb.ptr(a["p_obs"]),
-        cb.ptr(a["in_win"]), cb.ptr(a["obs_node"]), cb.ptr(a["last_nodes"]),
-        cb.ptr(a["w_fac"]), cb.ptr(best), cb.ptr(bp), B, L, N, O, H, n_last,
-        int(bool(closed)), cb.stream())
-    cb.check(rc, "window_dp")
+    c_args, best, bp, _keep = kernel_args(
+        w, zone_block, start_layer, start_node, slab_layers, hit_slab, p_obs,
+        in_win, obs_node, last_nodes, w_last_factors, closed, h_max)
+    cb.check(cb.load("window_dp")(*c_args, cb.stream()), "window_dp")
     fused_window_dp.launches += 1
     return best, bp
 

@@ -130,8 +130,8 @@ def main():
              for i, (a, _) in enumerate(rec.calls["vel_scan_cgg"])]
     calls += [(f"fleet general {i}", False, a)
               for i, (a, _) in enumerate(rec.calls["vel_scan"])]
-    calls += [(f"facade tick 15 call {i}", False, a)
-              for i, a in enumerate(facade_calls(cs, targets))]
+    calls += [(f"facade tick 15 call {i}", False, a) for i, (a, _) in
+              enumerate(facade_calls(cs, targets, ("vel_scan",))["vel_scan"])]
 
     def as_general(cgg, a):
         """(k1, a1, y1, k2, a2, y2, ds, v_lim, v_init, mode, machines,
@@ -238,8 +238,9 @@ def main():
     print("done")
 
 
-def facade_calls(cs, targets):
-    """The vel_scan calls of tick 15 of the facade's oval drive."""
+def facade_calls(cs, targets, names):
+    """The calls ``(args, kwargs)`` of the named kernels in tick 15 of the
+    facade's oval drive, by name."""
     from graphbasedlocaltrajectoryplanner_torch.planner.facade import (
         GraphLTPL)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
@@ -257,7 +258,7 @@ def facade_calls(cs, targets):
     ltpl.graph_init()
     h = ltpl._oth
     pos, heading = cl.start_pose(h.np_refline, 0)
-    rec = cs.Recorder({"vel_scan": targets["vel_scan"]})
+    rec = cs.Recorder({name: targets[name] for name in names})
     rec.on = False
 
     def on_tick(tick):
@@ -267,7 +268,7 @@ def facade_calls(cs, targets):
                  cl.slow_opponent(h.np_raceline, h.np_normvec, h.np_s_rl),
                  cl.left_half_zone(h.np_nodes_in_layer), on_tick=on_tick)
     torch.cuda.synchronize()
-    return [a for a, _ in rec.calls["vel_scan"]]
+    return rec.calls
 
 
 if __name__ == "__main__":
