@@ -14,19 +14,21 @@ unclosed Monteblanco lattice with the port's builder, then:
    least time the card could take for the same work; then holds both
    velocity-scan instances, the window DP and the slab-hit kernel against
    their plain versions, bit-equal, on seeded inputs at ragged shapes the
-   main paths do not reach, and the velocity scans'
+   main paths do not reach, the walk and the min-plus scan on the seeded
+   cases of ``testing_tools/walk_cases``, and the velocity scans'
    branch-free division and square root (``csrc/ieee_fast.cuh``) against
    the plain operators on every float32 (the root, dividends over a few
-   divisors) and on random pairs;
+   divisors) and on random pairs; times the walk alone on a table already
+   on chip (``testing_tools/walk_variants.cu``), its chain floor;
 2. runs the fleet tick (``make_batched_tick``) at batch 1024 in three
    mixes — default oval with 1 opponent, default oval with 3 opponents and
    16 collision slots, unclosed Monteblanco with 1 opponent — with the
    kernels and with the plain versions on the same card: ``valid``,
    ``h_eff``, ``cost``, ``n_valid``, ``case_a``, ``relabel`` and
    ``em_base`` equal, trajectories within 2 mm and 0.02 m/s, and every
-   kernel's launch count above zero in the kernel tick; the window-DP and
-   slab-hit calls of the second and third mix are held against their plain
-   versions and timed too;
+   kernel's launch count above zero in the kernel tick; the window-DP,
+   slab-hit and walk calls of the second and third mix are held against
+   their plain versions and timed too;
 3. runs the dense-window search (``pathgen.plan_window_dense`` and
    ``search.search_window``, B=1024 on the default oval with 1 opponent)
    through the min-plus kernel: the kernel bit-equal to its plain version,
@@ -91,7 +93,7 @@ KERNELS = [
 ]
 FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan")
 # timed in every fleet mix and in the facade, beside their bounds
-REDESIGNED = ("hit_slab", "window_dp")
+REDESIGNED = ("hit_slab", "window_dp", "backtrace")
 # the kernels of the interactive facade's path
 FACADE = ("hit_slab", "window_dp", "backtrace", "vel_scan")
 FACADE_TICKS_OVAL = 150
@@ -166,10 +168,10 @@ def _cost_window_dp(args, out, H):
 
 
 def _cost_backtrace(args, out):
-    bp, goal, heff = args
-    # one dependent 4-byte load per walked layer
-    need = int(heff.to(torch.int64).sum()) * 4
-    return need + _nbytes(goal, heff, out), int(heff.sum())
+    bp, goal, heff, *slot = args[:4]
+    # one 4-byte load and one compare per walked layer
+    walked = int(heff.to(torch.int64).clamp(0, bp.shape[-2] - 1).sum())
+    return walked * 4 + _nbytes(goal, heff, *slot, out), walked
 
 
 _MODE_OPS = {0: 24, 1: 13, 2: 28}      # flops per step: FWD, BRAKE, BWD
@@ -253,11 +255,13 @@ def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
     then timed on the device and per wrapper call (the plain version too
     when ``plain_reps``), beside its bound.  Prints a line, returns the
     numbers."""
-    ko = kern(*a, **kw)
     po = plain(*a, **kw)
+    po_t = po if isinstance(po, tuple) else (po,)
+    for x in po_t:
+        _spoil(x.shape, x.dtype)
+    ko = kern(*a, **kw)
     torch.cuda.synchronize()
     ko_t = ko if isinstance(ko, tuple) else (ko,)
-    po_t = po if isinstance(po, tuple) else (po,)
     err = max(float((x.double() - y.double()).abs().max())
               for x, y in zip(ko_t, po_t))
     for x, y in zip(ko_t, po_t):
@@ -270,13 +274,23 @@ def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
     nb, ops = _cost(name, a, kw, ko)
     bound_ms, by = _bound(nb, ops)
     shape = "x".join(str(d) for d in a[0].shape)
-    print(f"kernel {name} {where} {a[0].shape[0]} rows [{shape}]: "
+    rows = a[1].shape[0] if name == "backtrace" else a[0].shape[0]
+    print(f"kernel {name} {where} {rows} rows [{shape}]: "
           f"max|kernel-plain|={err:.3g} (bit-equal) kernel {ms:.4f} ms on "
           f"the device, {wrapper_ms:.4f} ms a wrapper call; "
           + (f"plain {plain_ms:.4f} ms " if plain_reps else "")
           + f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)", flush=True)
     return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bytes=nb,
                 ops=ops, err=err)
+
+
+def _spoil(shape, dtype):
+    """Leave the allocator a freed block of the size of a kernel's output
+    that holds neither a valid result nor zeros, so that what a kernel does
+    not write shows in the comparison."""
+    t = torch.empty(shape, dtype=dtype, device="cuda")
+    t.view(torch.uint8).fill_(0xA5)
+    del t
 
 
 def ragged_window_kernels():
@@ -291,14 +305,6 @@ def ragged_window_kernels():
                                                             cuda_window)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         window_cases as wc)
-
-    def spoil(shape, dtype):
-        """Leave the allocator a freed block of the size of a kernel's
-        output that holds neither a valid result nor zeros, so that what a
-        kernel does not write shows in the comparison."""
-        t = torch.empty(shape, dtype=dtype, device="cuda")
-        t.view(torch.uint8).fill_(0xA5)
-        del t
 
     def on_card(case, keys, wide):
         """The case's tensors; every other case with int64 indices, which
@@ -326,7 +332,7 @@ def ragged_window_kernels():
         kw = dict(closed=case["closed"], h_max=case["h_max"])
         po = cuda_window.fused_window_dp_plain(*a, **kw)
         for x in po:
-            spoil(x.shape, x.dtype)
+            _spoil(x.shape, x.dtype)
         ko = cuda_window.fused_window_dp(*a, **kw)
         torch.cuda.synchronize()
         for what, x, y in zip(("best", "bp"), ko, po):
@@ -337,7 +343,7 @@ def ragged_window_kernels():
     for label, case in hits:
         a = on_card(case, wc.HIT_ARGS, n_h % 2 == 1)
         po = cuda_collision.hit_slab_plain(*a)
-        spoil(po.shape, po.dtype)
+        _spoil(po.shape, po.dtype)
         ko = cuda_collision.hit_slab(*a)
         torch.cuda.synchronize()
         _check(ko.shape == po.shape and ko.dtype == po.dtype
@@ -347,6 +353,85 @@ def ragged_window_kernels():
                f" of {ko.numel()} bytes")
         n_h += 1
     return n_w, n_h
+
+
+def ragged_walk_kernels():
+    """The walk and the min-plus kernel against their plain versions,
+    bit-equal, on the seeded raw cases of ``testing_tools/walk_cases``: rows
+    around a warp and beyond 4,096, node counts around a warp and beyond
+    64, horizons of 0, 1, H and beyond, DP and random tables, the slot
+    form, tied, INF and overflowing costs; the index arrays as the case has
+    them (int32 and int64 mixed), every other case all int64; output memory
+    spoiled before each call.  And the first N = 24 min-plus case once more
+    with its window 4 bytes off 16-byte alignment (the kernel's 4-byte
+    ``cp.async`` path at an even N).  Returns the numbers of calls
+    compared."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import (cuda_backtrace,
+                                                            cuda_minplus)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        walk_cases as kc)
+
+    def index(x, wide):
+        t = torch.from_numpy(x).cuda()
+        return t.long() if wide else t
+
+    def held(what, label, ko, po):
+        for x, y in zip(ko, po):
+            _check(x.shape == y.shape and torch.equal(x, y),
+                   f"ragged {what} {label}: differs in "
+                   f"{int((x != y).sum())} of {x.numel()} places")
+    n_w = n_m = 0
+    for i in range(len(kc.WALK_CASES)):
+        label, case = kc.walk_label(i), kc.walk_case_at(i)
+        bp, *idx = kc.walk_args(case)
+        a = [torch.from_numpy(bp).cuda()] + [index(x, i % 2) for x in idx]
+        po = cuda_backtrace.backtrace_walk_plain(*a)
+        _spoil(po.shape, po.dtype)
+        held("backtrace", label, (cuda_backtrace.backtrace_walk(*a),), (po,))
+        n_w += 1
+    misaligned = False
+    for i in range(len(kc.MINPLUS_CASES)):
+        label, case = kc.minplus_label(i), kc.minplus_case_at(i)
+        w = torch.from_numpy(case["w_window"]).cuda()
+        start = index(case["start_node"], i % 2)
+        po = cuda_minplus.minplus_scan_plain(w, start)
+        for x in po:
+            _spoil(x.shape, x.dtype)
+        held("minplus", label, cuda_minplus.minplus_scan(w, start), po)
+        n_m += 1
+        if w.shape[-1] == 24 and not misaligned:
+            buf = torch.empty(w.numel() + 1, device="cuda")
+            w_off = buf[1:].view(w.shape)
+            w_off.copy_(w)
+            for x in po:
+                _spoil(x.shape, x.dtype)
+            held("minplus", label + " (window 4 bytes off alignment)",
+                 cuda_minplus.minplus_scan(w_off, start), po)
+            misaligned = True
+            n_m += 1
+        del w
+    torch.cuda.synchronize()
+    return n_w, n_m
+
+
+def dense_window_inputs(lat, scen):
+    """``(win_args, start4, shrink4)`` of the dense-window search over a
+    fleet's scenarios: the arguments of ``plan_window_dense`` (no zone,
+    the default last-path factors) and each scenario's start node and
+    horizon-shrink flags in its four slots."""
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    B = scen.start_node.shape[0]
+    obs = sc._select_obstacle(lat, scen)
+    zone0 = torch.zeros((lat.L, lat.N), dtype=torch.bool, device="cuda")
+    w_fac = torch.tensor([0.0, 0.5, 0.8], device="cuda")
+    win_args = (lat, scen.start_layer, scen.start_node, zone0,
+                scen.obj_pos, scen.obj_radius, scen.obj_active,
+                obs["obs_layer"], obs["obs_node"], obs["obs_found"],
+                scen.last_nodes, w_fac)
+    start4 = scen.start_node.long()[:, None].expand(B, 4)
+    shrink4 = torch.tensor([True, True, False, False],
+                           device="cuda").expand(B, 4)
+    return win_args, start4, shrink4
 
 
 class Recorder:
@@ -406,6 +491,8 @@ def main():
         vel_cases as vc)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         vel_scan_variants as vv)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        walk_variants as wv)
     mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
                 cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity,
                 cuda_minplus=cuda_minplus)
@@ -425,9 +512,12 @@ def main():
 
     # ---- 2. kernels -------------------------------------------------------
     t0 = time.perf_counter()
+    wv_build = wv.start_build(cuda_build)      # alongside the kernels
     built = cuda_build.build_all()
+    bt_variant, _ = wv.load_variants(wv_build)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{sorted(built) or 'nothing (cached)'}", flush=True)
+          f"{sorted(built) or 'nothing (cached)'} and "
+          f"testing_tools/walk_variants.cu", flush=True)
     for name, (secs, log) in sorted(built.items()):
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                 if "registers" in ln]
@@ -489,6 +579,12 @@ def main():
             tot["err"] = max(tot["err"], r["err"])
         tot["bound_ms"], tot["bound_by"] = _bound(tot["bytes"], tot["ops"])
         stats[name] = tot
+    # the walk alone on a table already on chip: one walk's chain
+    chain_ms, _ = wv.walk_chain(_device_ms, cuda_build, bt_variant,
+                                *calls["backtrace"][0])
+    stats["backtrace"]["chain_floor_ms"] = chain_ms
+    print(f"chain backtrace call: one walk on chip {chain_ms:.5f} ms "
+          f"(walk_only, slope between 1 and {wv.REPS} walks)", flush=True)
 
     n_ragged = ragged_vel_scans(cuda_velocity.CHUNK)
     print(f"ragged shapes: vel_scan and vel_scan_cgg bit-equal to the plain "
@@ -498,6 +594,11 @@ def main():
     print(f"ragged shapes: window_dp bit-equal to the plain version on {n_w} "
           f"seeded calls, hit_slab on {n_h} (testing_tools/window_cases)",
           flush=True)
+    t0 = time.perf_counter()
+    n_w, n_m = ragged_walk_kernels()
+    print(f"ragged shapes: backtrace bit-equal to the plain version on {n_w} "
+          f"seeded calls, minplus on {n_m} (testing_tools/walk_cases), in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the fleet tick, kernels vs plain, three mixes ------------------
     mixes = [
@@ -616,22 +717,14 @@ def main():
           f"{np.percentile(lat_s, 99) * 1e3:.2f} ms")
 
     # ---- 6. the dense-window search through the min-plus kernel ----------
-    obs1 = sc._select_obstacle(oval, scen1)
-    zone0 = torch.zeros((oval.L, oval.N), dtype=torch.bool, device="cuda")
-    w_fac = torch.tensor([0.0, 0.5, 0.8], device="cuda")
-    win_args = (oval, scen1.start_layer, scen1.start_node, zone0,
-                scen1.obj_pos, scen1.obj_radius, scen1.obj_active,
-                obs1["obs_layer"], obs1["obs_node"], obs1["obs_found"],
-                scen1.last_nodes, w_fac)
-    start4 = scen1.start_node.long()[:, None].expand(B, 4)
-    shrink4 = torch.tensor([True, True, False, False],
-                           device="cuda").expand(B, 4)
+    win_args, start4, shrink4 = dense_window_inputs(oval, scen1)
     for _, path, *_ in KERNELS:
         wrapper(path).launches = 0
     dense = pg.plan_window_dense(*win_args)
     h_goal4 = dense["h_goal"].long()[:, None].expand(B, 4)
-    sw = srch.search_window(dense["w_all"], start4, dense["vg"], h_goal4,
-                            shrink4)
+    with Recorder({"backtrace": targets["backtrace"]}) as dense_rec:
+        sw = srch.search_window(dense["w_all"], start4, dense["vg"],
+                                h_goal4, shrink4)
     torch.cuda.synchronize()
     dense_counts = {name: wrapper(path).launches
                     for name, path, *_ in KERNELS}
@@ -647,9 +740,15 @@ def main():
         _check(torch.equal(sw[k], sw_p[k]), f"search_window {k} differs")
     n_feasible = int(sw["feasible"].sum())
     _check(n_feasible > 0, "search_window: no feasible row")
+    for a, kw in dense_rec.calls["backtrace"]:
+        held_and_timed("backtrace", "dense window call",
+                       cuda_backtrace.backtrace_walk, plains["backtrace"],
+                       a, kw, 5)
     w_all = dense["w_all"]
-    ko = cuda_minplus.minplus_scan(w_all, start4)
     po = cuda_minplus.minplus_scan_plain(w_all, start4)
+    for x in po:
+        _spoil(x.shape, x.dtype)
+    ko = cuda_minplus.minplus_scan(w_all, start4)
     torch.cuda.synchronize()
     for x, y in zip(ko, po):
         _check(torch.equal(x, y), "minplus: not bit-equal")
@@ -770,11 +869,13 @@ def main():
             _check(recorder.calls[name],
                    f"facade {tname}: no {name} call recorded")
             for a, kw in recorder.calls[name]:
-                ko = kern(*a, **kw)
                 po = facade_plain[name](*a, **kw)
+                po_t = po if isinstance(po, tuple) else (po,)
+                for x in po_t:
+                    _spoil(x.shape, x.dtype)
+                ko = kern(*a, **kw)
                 torch.cuda.synchronize()
                 ko_t = ko if isinstance(ko, tuple) else (ko,)
-                po_t = po if isinstance(po, tuple) else (po,)
                 err = max(float((x.double() - y.double()).abs().max())
                           for x, y in zip(ko_t, po_t))
                 if name == "vel_scan":
@@ -793,6 +894,12 @@ def main():
                 if name in REDESIGNED:
                     b_ms, by = _bound(*_cost(name, a, kw, ko))
                     bound = f"; bound {b_ms:.5f} ms ({by})"
+                if name == "backtrace":
+                    chain_ms, _ = wv.walk_chain(_device_ms, cuda_build,
+                                                bt_variant, a, kw)
+                    bound += f"; one walk on chip {chain_ms:.5f} ms"
+                    if tname == "oval":
+                        stats[name]["facade_chain_floor_ms"] = chain_ms
                 print(f"kernel {name} facade {tname} ticks "
                       f"{list(rec_ticks)} call [{shape}]: max|kernel-plain|="
                       f"{err:.3g} (bit-equal) kernel {ms:.4f} ms on the "
@@ -831,6 +938,9 @@ def main():
                          plain_ms=s["plain_ms"],
                          bound_ms=s["bound_ms"], bound_by=s["bound_by"],
                          library_ms=None,
+                         chain_floor_ms=s.get("chain_floor_ms"),
+                         facade_chain_floor_ms=s.get(
+                             "facade_chain_floor_ms"),
                          launches_fleet_tick=launches.get(name, 0),
                          launches_facade_tick=facade_counts.get(name, 0.0),
                          launches_dense_window=dense_counts[name],

@@ -87,10 +87,10 @@ _ENTRY = {
     "hit_slab": ("hit_slab_launch", [_P] * 6 + [_I] * 6 + [_P]),
     "window_dp": ("window_dp_launch",
                   [_P, _P, _LL] + [_P] * 11 + [_I] * 8 + [_P]),
-    "backtrace": ("backtrace_launch", [_P] * 4 + [_I] * 3 + [_P]),
+    "backtrace": ("backtrace_launch", [_P] * 5 + [_I] * 6 + [_P]),
     "vel_scan": ("vel_scan_launch",
                  [_P] * 11 + [_I, _P, _I, _I, _I] + [_F] * 7 + [_P]),
-    "minplus": ("minplus_launch", [_P] * 4 + [_I] * 3 + [_P]),
+    "minplus": ("minplus_launch", [_P] * 4 + [_I] * 5 + [_P]),
 }
 
 
@@ -114,12 +114,24 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+# the index types the kernels read as they come
+INDEX_DTYPES = (torch.int32, torch.int64)
+
+
 def index_arg(t: torch.Tensor):
     """An index tensor as a kernel that reads int32 or int64 takes it:
     ``(tensor, wide)``, converted to int32 only from another type."""
-    if t.dtype not in (torch.int32, torch.int64):
+    if t.dtype not in INDEX_DTYPES:
         t = t.to(torch.int32)
     return t.contiguous(), int(t.dtype == torch.int64)
+
+
+def index_tensor(t: torch.Tensor, shape: tuple, what: str):
+    """``(tensor, wide)`` of an index tensor that must already be int32 or
+    int64 (no conversion kernel); raises on another type or shape."""
+    t = t.contiguous()
+    require(t, INDEX_DTYPES, shape, what)
+    return t, int(t.dtype == torch.int64)
 
 
 def stream() -> ctypes.c_void_p:
@@ -135,12 +147,16 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
 
 
-def require(t: torch.Tensor, dtype: torch.dtype, shape: tuple, what: str):
-    """Raise unless ``t`` is a contiguous CUDA tensor of this dtype/shape."""
+def require(t: torch.Tensor, dtype, shape: tuple, what: str):
+    """Raise unless ``t`` is a contiguous CUDA tensor of this shape and of
+    this dtype (or of one of a tuple of dtypes)."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{what}: expected "
+                         f"{' or '.join(str(d) for d in dtypes)}, "
+                         f"got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

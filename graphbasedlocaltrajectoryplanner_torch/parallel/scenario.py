@@ -382,11 +382,14 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
     goal_tot = out["best"][r4, src4, h_safe] + out["vg"][r4, src4, h_safe]
     goal_node = torch.argmin(goal_tot, dim=-1)                      # (B, 4)
     cost_all = torch.gather(goal_tot, 2, goal_node[..., None])[..., 0]
-    bp_sel = out["bp"][r4, src4]                                # (B,4,H+1,N)
+    # output slot j of scenario b walks the DP's table of slot src4[b, j],
+    # which is one of the four slot constants
     walk = (cuda_backtrace.backtrace_walk if kernels
             else cuda_backtrace.backtrace_walk_plain)
-    nodes4 = walk(bp_sel.reshape(B * 4, H + 1, N), goal_node.reshape(B * 4),
-                  h_safe.reshape(B * 4)).reshape(B, 4, H + 1).long()
+    slots = (pg.SLOT_STRAIGHT, pg.SLOT_FOLLOW, pg.SLOT_LEFT, pg.SLOT_RIGHT)
+    nodes4 = walk(out["bp"], goal_node.reshape(B * 4), h_safe.reshape(B * 4),
+                  src4.reshape(B * 4), slot_range=(min(slots), max(slots))
+                  ).reshape(B, 4, H + 1).long()
     end_nodes = torch.gather(nodes4, 2, h_safe[..., None])[..., 0]
 
     # start heading: the previous path's heading at the start node when a

@@ -533,12 +533,16 @@ class OnlineHandler:
                     closest_obj_index)
 
         # ---- one backtrace over every selected action ---------------------
-        sel = torch.as_tensor(np.array([[s[1], s[2]] for s in selected]),
-                              device=dev)
-        slots, h_effs = sel[:, 0], sel[:, 1]
+        # rows of slots and of horizons: each contiguous as the walk takes it;
+        # the slots' bounds from the host, so the walk reads no slot back
+        sel_np = np.array([[s[1] for s in selected],
+                           [s[2] for s in selected]])
+        sel = torch.as_tensor(sel_np, device=dev)
+        slots, h_effs = sel[0], sel[1]
         nodes_all, _cost = pg.backtrace_slot(
-            out["best"][0, slots], out["bp"][0, slots], out["vg"][0, slots],
-            h_effs, kernels=self.kernels)
+            out["best"], out["bp"], out["vg"], h_effs, kernels=self.kernels,
+            slot=slots, slot_range=(int(sel_np[0].min()),
+                                    int(sel_np[0].max())))
         nodes_np = _np(nodes_all)
         win = (start_layer + np.arange(lat.H_max + 1)) % lat.L
 

@@ -206,17 +206,28 @@ def feasibility_vectors(best, vg):
     return torch.amin(best + vg, dim=-1) < srch.FEAS_THRESH
 
 
-def backtrace_slot(best, bp, vg, h_eff, kernels: bool = True):
+def backtrace_slot(best, bp, vg, h_eff, kernels: bool = True, slot=None,
+                   slot_range=None):
     """Goal argmin + backtrace per row at a fixed horizon: ``best``/``bp``/
     ``vg`` (R, H+1, N), ``h_eff`` (R,) -> (nodes (R, H+1) int32, cost
-    (R,)).  The walk is kernel 3 on the card (the batched form of the JAX
-    package's ``make_backtrace_goal``)."""
-    rows = torch.arange(best.shape[0], device=best.device)
-    goal_tot = best[rows, h_eff.long()] + vg[rows, h_eff.long()]
+    (R,)).  With ``slot`` (R,), ``best``/``bp``/``vg`` are the window DP's
+    unselected (R0, S, H+1, N) outputs and row r takes slot ``slot[r]`` of
+    table row ``r // (R / R0)``; no slot's table is copied out, and
+    ``slot_range`` are the slots' bounds where the caller knows them
+    (``cuda_backtrace.slot_layout``).  The walk is kernel 3 on the card (the batched form of the JAX package's
+    ``make_backtrace_goal``)."""
+    R = h_eff.shape[0]
+    rows = torch.arange(R, device=best.device)
+    h = h_eff.long()
+    if slot is None:
+        goal_tot = best[rows, h] + vg[rows, h]
+    else:
+        t, s = rows // max(R // best.shape[0], 1), slot.long()
+        goal_tot = best[t, s, h] + vg[t, s, h]
     goal_node = torch.argmin(goal_tot, dim=-1)
     walk = (cuda_backtrace.backtrace_walk if kernels
             else cuda_backtrace.backtrace_walk_plain)
-    nodes = walk(bp, goal_node, h_eff)
+    nodes = walk(bp, goal_node, h_eff, slot, slot_range=slot_range)
     return nodes, goal_tot[rows, goal_node]
 
 
