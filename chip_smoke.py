@@ -35,14 +35,27 @@ unclosed Monteblanco lattice with the port's builder, then:
    the dense frontiers and backpointers equal to ``plan_window_kernel``'s
    (the window-DP kernel), the search equal to its plain version;
 4. drives the interactive facade (``GraphLTPL``) in closed loop on the
-   card — default oval for 150 ticks with a slower opponent and a zone,
+   card — default oval for 100 ticks with a slower opponent and a zone,
    unclosed Monteblanco into its track end — and replays the same input
    stream through ``GraphLTPL(kernels=False)``: action sets and node
    chains equal on every tick, trajectories within 2 mm and 0.02 m/s,
    every kernel of the path launched; on two recorded ticks every kernel
    call is held against its plain version;
 5. times the facade per tick (``calc_paths`` + ``calc_vel_profile``) on
-   the real clock.
+   the real clock;
+6. the SQP velocity backend (``vp_type=sqp``): the ADMM kernel
+   (``csrc/admm_vel.cu``) bit-equal to its plain version
+   (``ops/qp.admm_vel_qp``) on the SQP fleet tick's and the SQP facade's
+   recorded calls and on the seeded ragged calls of
+   ``testing_tools/admm_cases``, timed beside its bound and the plain
+   version (and the plain version's kernel launches a solve); the fleet
+   tick under ``vp_backend="sqp"`` at batch 1024, kernels against plain;
+   the facade under the SQP INI on the oval (kernels against plain, tick
+   by tick, latency per tick) and into the unclosed Monteblanco track end,
+   where the SQP backup ladder (``brake_em_sqp_kernel``) brakes;
+7. replays the recorded reference run ``ref_unclosed_monteblanco_220``
+   through the facade with the kernels (``parity/replay_torch.py``) at the
+   north-star bar (2 cm, 0.1 m/s).
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -90,13 +103,25 @@ KERNELS = [
      TPU + "pallas_velocity.py:160"),
     ("minplus", "cuda_minplus.minplus_scan", CSRC + "minplus.cu",
      TPU + "pallas_minplus.py:90"),
+    # no Pallas kernel: the JAX package's ADMM is a lax.scan in XLA
+    ("admm_vel", "cuda_admm.admm_vel", CSRC + "admm_vel.cu",
+     TPU + "qp.py:211"),
 ]
 FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan")
 # timed in every fleet mix and in the facade, beside their bounds
 REDESIGNED = ("hit_slab", "window_dp", "backtrace")
 # the kernels of the interactive facade's path
 FACADE = ("hit_slab", "window_dp", "backtrace", "vel_scan")
-FACADE_TICKS_OVAL = 150
+# 100 of the fb oval drive's 150 earlier ticks: its plain replay was most
+# of the run, and every action kind is reached by tick 15
+FACADE_TICKS_OVAL = 100
+# the SQP paths: the facade on the oval, and into the unclosed track's end
+# from layer 30, where the SQP backup ladder brakes at ticks 52-56
+SQP_TICKS_OVAL = 40
+SQP_TICKS_UNCLOSED = 60
+SQP_START_LAYER_UNCLOSED = 30
+SQP_INI = "parity/fixtures/ltpl_config_online_sqp.ini"
+REPLAY_FIXTURE = "parity/fixtures/ref_unclosed_monteblanco_220.npz"
 # unclosed Monteblanco: from 85 m before the track end (layer 26) into the
 # end, where the track is blocked and the backup brake profile takes over
 FACADE_TICKS_UNCLOSED = 100
@@ -229,7 +254,18 @@ def ragged_vel_scans(chunk):
                        f"plain| = "
                        f"{float((ko - po).abs().nan_to_num(1e9).max())}")
                 n += 1
-    return n
+    # a one-row machine table (the facade's default), which the wrapper
+    # passes as two knots
+    case, R, T, exp = vc.ragged_case(2, 3, False, chunk)
+    t = {k: torch.from_numpy(v).cuda() for k, v in case.items()}
+    a = [t[k] for k in vc.GENERAL_ARGS] + [exp, 0.85, 1000.0]
+    a[10] = torch.tensor([[100.0, 5.0]], device="cuda")
+    ko = cuda_velocity.vel_scan(*a)
+    po = velops.stacked_vel_scan(*a)
+    torch.cuda.synchronize()
+    _check(torch.equal(ko, po), "vel_scan with a one-row machine table: "
+           f"max |kernel - plain| = {float((ko - po).abs().max())}")
+    return n + 1
 
 
 def _cost(name, a, kw, out):
@@ -289,7 +325,7 @@ def _spoil(shape, dtype):
     that holds neither a valid result nor zeros, so that what a kernel does
     not write shows in the comparison."""
     t = torch.empty(shape, dtype=dtype, device="cuda")
-    t.view(torch.uint8).fill_(0xA5)
+    t.reshape(-1).view(torch.uint8).fill_(0xA5)
     del t
 
 
@@ -434,6 +470,113 @@ def dense_window_inputs(lat, scen):
     return win_args, start4, shrink4
 
 
+def _cost_admm(d, iters, n_out):
+    """(bytes, operations) of one ADMM solve: the 11 input rows read once,
+    ``n_out`` output tensors written once; per point and step 53 + 4 L
+    float32 operations (L = ceil(log2 n) PCR levels; a division, a
+    maximum or a minimum counts one), the band and its factor (12 + 8 L a
+    point) and the residuals (20 a point) once."""
+    n = d["q"].shape[-1]
+    pts = d["q"].numel()
+    levels = max(n - 1, 1).bit_length()
+    ins = [d[k] for k in ("e", "f", "rho_acc", "rho_dec", "u_acc", "u_dec",
+                          "rho_box", "q", "x0", "l_box", "u_box")]
+    nb = _nbytes(*ins) + _nbytes(*n_out)
+    ops = pts * (iters * (53 + 4 * levels) + 12 + 8 * levels + 20)
+    return nb, ops
+
+
+def admm_held_and_timed(where, d, kw, plain_reps=0):
+    """One recorded ADMM call: the kernel (with the duals) bit-equal to
+    ``qp.admm_vel_qp`` on spoiled output memory, then timed on the device
+    and per wrapper call (the plain version too when ``plain_reps``),
+    beside its bound.  Prints a line, returns the numbers."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_admm, qp
+    iters = kw.get("iters", 60)
+    w_smooth = kw.get("w_smooth", 1e-4)
+    px, pr = qp.admm_vel_qp(d, iters=iters, w_smooth=w_smooth)
+    plain = (px, pr["r_prim"], pr["r_dual"], pr["y"])
+    for x in plain:
+        _spoil(x.shape, x.dtype)
+    kx, kr = cuda_admm.admm_vel(d, iters=iters, w_smooth=w_smooth,
+                                with_y=True)
+    torch.cuda.synchronize()
+    kern = (kx, kr["r_prim"], kr["r_dual"], kr["y"])
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(kern, plain))
+    for what, a, b in zip(("x", "r_prim", "r_dual", "y"), kern, plain):
+        _check(a.shape == b.shape and torch.equal(a, b),
+               f"admm_vel {where}: {what} not bit-equal, max |kernel - "
+               f"plain| {err}")
+
+    def call():
+        return cuda_admm.admm_vel(d, iters=iters, w_smooth=w_smooth)
+    ms = _device_ms(call)
+    wrapper_ms = _median_ms(call, 30)
+    plain_ms = (_median_ms(lambda: qp.admm_vel_qp(d, iters=iters,
+                                                  w_smooth=w_smooth),
+                           plain_reps) if plain_reps else None)
+    nb, ops = _cost_admm(d, iters, (kx, kr["r_prim"], kr["r_dual"]))
+    bound_ms, by = _bound(nb, ops)
+    print(f"kernel admm_vel {where} {d['q'].numel() // d['q'].shape[-1]} "
+          f"rows [{'x'.join(map(str, d['q'].shape))}] {iters} iterations: "
+          f"max|kernel-plain|={err:.3g} (x, r_prim, r_dual, y bit-equal) "
+          f"kernel {ms:.4f} ms on the device, {wrapper_ms:.4f} ms a wrapper "
+          f"call; " + (f"plain {plain_ms:.4f} ms " if plain_reps else "")
+          + f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)", flush=True)
+    return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, err=err)
+
+
+def plain_admm_launches(d, kw):
+    """Device kernels the plain version launches for one solve of ``d``
+    (``torch.profiler``), or None where the profiler sees none."""
+    from torch.profiler import ProfilerActivity, profile
+    from graphbasedlocaltrajectoryplanner_torch.ops import qp
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        qp.admm_vel_qp(d, iters=kw.get("iters", 60),
+                       w_smooth=kw.get("w_smooth", 1e-4))
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA"))
+    return n or None
+
+
+def ragged_admm():
+    """The ADMM kernel against its plain version, bit-equal (x, r_prim,
+    r_dual, y) on spoiled output memory, on the seeded calls of
+    ``testing_tools/admm_cases``.  Returns the number of calls."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_admm, qp
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        admm_cases as ac)
+    for i in range(len(ac.CASES)):
+        d, iters = ac.case(i, "cuda")
+        px, pr = qp.admm_vel_qp(d, iters=iters)
+        plain = (px, pr["r_prim"], pr["r_dual"], pr["y"])
+        for x in plain:
+            _spoil(x.shape, x.dtype)
+        kx, kr = cuda_admm.admm_vel(d, iters=iters, with_y=True)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("x", "r_prim", "r_dual", "y"),
+                              (kx, kr["r_prim"], kr["r_dual"], kr["y"]),
+                              plain):
+            _check(a.shape == b.shape and torch.equal(a, b),
+                   f"ragged admm_vel {ac.label(i)}: {what} differs in "
+                   f"{int((a != b).sum())} of {a.numel()} places")
+    return len(ac.CASES)
+
+
+def _sqp_pd(store, tname, track):
+    return {"globtraj_input_path": track,
+            "graph_store_path": os.path.join(store, f"sqp_{tname}.npz"),
+            "ltpl_offline_param_path": os.path.join(
+                ROOT, "params/ltpl_config_offline.ini"),
+            "ltpl_online_param_path": os.path.join(ROOT, SQP_INI),
+            "graph_log_id": f"sqp_{tname}",
+            "log_path": os.path.join(store, "logs")}
+
+
 class Recorder:
     """Replaces kernel wrappers by recorders while in a ``with`` block: each
     call is passed on, and its arguments are cloned into ``calls[name]``
@@ -475,7 +618,7 @@ def main():
     from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
     from graphbasedlocaltrajectoryplanner_torch.models import track as tt
     from graphbasedlocaltrajectoryplanner_torch.ops import (
-        cuda_backtrace, cuda_build, cuda_collision, cuda_minplus,
+        cuda_admm, cuda_backtrace, cuda_build, cuda_collision, cuda_minplus,
         cuda_velocity, cuda_window)
     from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
     from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
@@ -495,7 +638,7 @@ def main():
         walk_variants as wv)
     mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
                 cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity,
-                cuda_minplus=cuda_minplus)
+                cuda_minplus=cuda_minplus, cuda_admm=cuda_admm)
 
     def wrapper(path):
         m, f = path.split(".")
@@ -927,11 +1070,203 @@ def main():
           f"{tt.max():.2f} ms (budget 100 ms)", flush=True)
     _check(lat_p99 < 1000.0, f"facade latency p99 {lat_p99} ms")
 
-    # ---- 9. summary lines -------------------------------------------------
+    # ---- 9. the SQP backend: the ADMM kernel, the fleet tick, the facade --
+    from graphbasedlocaltrajectoryplanner_torch.planner import handler
+    t_sqp = time.perf_counter()
+    n_admm = ragged_admm()
+    print(f"ragged shapes: admm_vel bit-equal to the plain version on "
+          f"{n_admm} seeded calls (testing_tools/admm_cases)", flush=True)
+
+    sqp_kw = dict(vp_backend="sqp", sqp_m=115,
+                  sqp_step=float(oval.sampled_resolution),
+                  tire_end_idx=int(np.ceil(0.1 * 50
+                                           / float(oval.sampled_resolution))),
+                  tire_end_mps2=10.0)
+    tick_k = sc.make_batched_tick(oval, device="cuda", **sqp_kw)
+    tick_p = sc.make_batched_tick(oval, device="cuda", kernels=False,
+                                  **sqp_kw)
+    for _, path, *_ in KERNELS:
+        wrapper(path).launches = 0
+    admm_target = {"admm_vel": (cuda_admm, "admm_vel")}
+    with Recorder(admm_target) as sqp_rec:
+        out_k = tick_k(scen1)
+    torch.cuda.synchronize()
+    sqp_fleet_counts = {name: wrapper(path).launches
+                        for name, path, *_ in KERNELS}
+    _check(all(sqp_fleet_counts[k] > 0 for k in
+               ("hit_slab", "window_dp", "backtrace", "vel_scan",
+                "admm_vel")),
+           f"sqp fleet tick: a kernel was not launched: {sqp_fleet_counts}")
+    out_p = tick_p(scen1)
+    torch.cuda.synchronize()
+    for k in ("valid", "h_eff", "cost", "n_valid", "case_a", "relabel",
+              "em_base", "qp_status"):
+        _check(torch.equal(out_k[k], out_p[k]), f"sqp fleet tick: {k} differs")
+    d = (out_k["trajs"].double() - out_p["trajs"].double()).abs()
+    d_pos, d_vx = float(d[..., 0:3].max()), float(d[..., 5].max())
+    d_raw = float((out_k["vx_sqp"] - out_p["vx_sqp"]).abs().max())
+    _check(d_pos <= 2e-3 and d_vx <= 0.02 and d_raw <= 0.02,
+           f"sqp fleet tick: trajs deviate by {d_pos} m, {d_vx} m/s, "
+           f"vx_sqp by {d_raw} m/s")
+    _check(bool(torch.isfinite(out_k["trajs"]).all())
+           and int(out_k["valid"].sum()) > 0, "sqp fleet tick: bad result")
+    status = {c: int((out_k["qp_status"] == c).sum()) for c in (0, 2, -3)}
+    # the next ticks start warm from this tick's profiles
+    warm = out_k["vx_sqp"]
+    ts = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick_k(scen1, sqp_x0=warm)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    tp = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tick_p(scen1, sqp_x0=warm)
+        torch.cuda.synchronize()
+        tp.append(time.perf_counter() - t0)
+    t_med, tp_med = float(np.median(ts)), float(np.median(tp))
+    print(f"tick oval_1opp sqp B={B} on {card}: kernel launches "
+          f"{ {k: v for k, v in sqp_fleet_counts.items() if v} }; equal "
+          f"fields and qp_status equal (statuses {status}); max|d pos|="
+          f"{d_pos:.3g} m max|d vx|={d_vx:.3g} m/s max|d vx_sqp|={d_raw:.3g}"
+          f" m/s; kernel tick {t_med * 1e3:.2f} ms = {B / t_med:.1f} "
+          f"replans/s; plain tick {tp_med * 1e3:.2f} ms = "
+          f"{B / tp_med:.1f} replans/s", flush=True)
+    a, kw = sqp_rec.calls["admm_vel"][0]
+    stats["admm_vel"] = admm_held_and_timed("fleet call", a[0], kw, 3)
+    stats["admm_vel"]["plain_launches"] = plain_admm_launches(a[0], kw)
+    print(f"plain admm_vel, one fleet solve on the card: "
+          f"{stats['admm_vel']['plain_launches']} device kernels",
+          flush=True)
+
+    # the facade under the SQP INI on the oval, kernels against plain
+    ltpl_k = GraphLTPL(_sqp_pd(store, "oval", "oval"), device="cuda")
+    ltpl_k.graph_init()
+    ltpl_p = GraphLTPL(_sqp_pd(store, "oval", "oval"), device="cuda",
+                       kernels=False, log_to_file=False)
+    ltpl_p.graph_init()
+    h = ltpl_k._oth
+    pos, heading = cl.start_pose(h.np_refline)
+    for _, path, *_ in KERNELS:
+        wrapper(path).launches = 0
+    fac_rec = Recorder(admm_target)
+    fac_rec.on = False
+
+    def on_tick(tick, _r=fac_rec):
+        _r.on = (tick + 1) == 15
+    timings = []
+    with fac_rec:
+        rec_k = cl.drive(ltpl_k, SQP_TICKS_OVAL, pos, heading,
+                         cl.slow_opponent(h.np_raceline, h.np_normvec,
+                                          h.np_s_rl),
+                         cl.left_half_zone(h.np_nodes_in_layer),
+                         on_tick=on_tick, timings=timings)
+    torch.cuda.synchronize()
+    sqp_facade_counts = {name: wrapper(path).launches / SQP_TICKS_OVAL
+                         for name, path, *_ in KERNELS}
+    _check(all(sqp_facade_counts[k] > 0 for k in
+               ("hit_slab", "window_dp", "backtrace", "vel_scan",
+                "admm_vel")),
+           f"sqp facade: a kernel was not launched: {sqp_facade_counts}")
+    t0 = time.perf_counter()
+    rec_p = cl.drive(ltpl_p, SQP_TICKS_OVAL, pos, heading,
+                     zones=cl.left_half_zone(h.np_nodes_in_layer),
+                     replay=rec_k)
+    t_p = time.perf_counter() - t0
+    d_pos, d_vx, seen = cl.compare(rec_k, rec_p)
+    _check(d_pos <= 2e-3 and d_vx <= 0.02,
+           f"sqp facade oval: trajs deviate by {d_pos} m, {d_vx} m/s")
+    _check(seen == {"straight", "follow", "left", "right", "emergency"},
+           f"sqp facade oval: actions {seen}")
+    _check(set(ltpl_k._oth.sqp_state) == set(ltpl_p._oth.sqp_state),
+           "sqp facade oval: warm-start keys differ")
+    d_state = max(float(np.abs(v - ltpl_p._oth.sqp_state[k]).max())
+                  for k, v in ltpl_k._oth.sqp_state.items())
+    tt = np.asarray(timings[5:]) * 1e3
+    sqp_p50, sqp_p99 = np.percentile(tt, 50), np.percentile(tt, 99)
+    print(f"facade sqp oval {SQP_TICKS_OVAL} ticks on {card}: kernel "
+          f"launches per tick "
+          f"{ {k: round(v, 3) for k, v in sqp_facade_counts.items() if v} };"
+          f" action sets and node chains equal on every tick, actions "
+          f"{sorted(seen)}; max|d s,x,y|={d_pos:.3g} m max|d vx|={d_vx:.3g} "
+          f"m/s, warm-start store max|d|={d_state:.3g} m/s; latency "
+          f"(fake clock, calc_paths + calc_vel_profile, ticks 5-"
+          f"{SQP_TICKS_OVAL - 1}) p50 {sqp_p50:.2f} ms p99 {sqp_p99:.2f} ms; "
+          f"plain replay {t_p:.1f} s", flush=True)
+    a, kw = fac_rec.calls["admm_vel"][0]
+    fac = admm_held_and_timed("facade tick 15 call", a[0], kw, 3)
+    stats["admm_vel"]["facade_tick_ms"] = fac["ms"]
+    stats["admm_vel"]["facade_tick_wrapper_ms"] = fac["wrapper_ms"]
+    stats["admm_vel"]["facade_plain_ms"] = fac["plain_ms"]
+    stats["admm_vel"]["facade_bound_ms"] = fac["bound_ms"]
+
+    # into the unclosed Monteblanco end: the SQP backup ladder
+    pd_u = _sqp_pd(store, "unclosed_monteblanco", os.path.join(
+        ROOT, "parity/fixtures/traj_ltpl_unclosed_monteblanco.csv"))
+    ltpl_u = GraphLTPL(pd_u, device="cuda", log_to_file=False)
+    ltpl_u.graph_init()
+    ladder = []
+    real_em = handler.vp.brake_em_sqp_kernel
+
+    def em_counted(*a, **k):
+        ladder.append(wrapper("cuda_admm.admm_vel").launches)
+        out = real_em(*a, **k)
+        ladder[-1] = wrapper("cuda_admm.admm_vel").launches - ladder[-1]
+        return out
+    handler.vp.brake_em_sqp_kernel = em_counted
+    lad_rec = Recorder(admm_target)
+    try:
+        pos, heading = cl.start_pose(ltpl_u._oth.np_refline,
+                                     SQP_START_LAYER_UNCLOSED)
+        with lad_rec:
+            cl.drive(ltpl_u, SQP_TICKS_UNCLOSED, pos, heading)
+        torch.cuda.synchronize()
+    finally:
+        handler.vp.brake_em_sqp_kernel = real_em
+    _check(ladder and all(n == 1 for n in ladder),
+           f"sqp unclosed: the SQP ladder was not taken ({ladder})")
+    lad_calls = [(a, kw) for a, kw in lad_rec.calls["admm_vel"]
+                 if a[0]["q"].dim() == 1]
+    lad = admm_held_and_timed("ladder call", lad_calls[0][0][0],
+                              lad_calls[0][1], 3)
+    stats["admm_vel"]["ladder_ms"] = lad["ms"]
+    print(f"facade sqp unclosed_monteblanco {SQP_TICKS_UNCLOSED} ticks "
+          f"(start layer {SQP_START_LAYER_UNCLOSED}) on {card}: SQP backup "
+          f"ladder {len(ladder)} times, one admm_vel launch each", flush=True)
+    print(f"sqp phases: {time.perf_counter() - t_sqp:.1f} s", flush=True)
+
+    # ---- 10. the recorded reference run through the port ------------------
+    from parity.replay_torch import replay
+    t0 = time.perf_counter()
+    for _, path, *_ in KERNELS:
+        wrapper(path).launches = 0
+    rep, _ = replay(os.path.join(ROOT, REPLAY_FIXTURE), device="cuda")
+    replay_counts = {name: wrapper(path).launches
+                     for name, path, *_ in KERNELS}
+    _check(all(replay_counts[k] > 0 for k in FACADE),
+           f"replay: a kernel was not launched: {replay_counts}")
+    _check(rep["pairs_compared"] >= rep["ticks"]
+           and not rep["actions_missing_in_port"]
+           and not rep["actions_extra_in_port"]
+           and rep["max_d_pos_m"] < 0.02 and rep["max_d_vel_mps"] < 0.1,
+           f"replay: {rep}")
+    print(f"replay {rep['fixture']} {rep['ticks']} ticks on {card}: kernel "
+          f"launches { {k: v for k, v in replay_counts.items() if v} }; max "
+          f"|d pos| {rep['max_d_pos_m']:.3g} m, max |d vel| "
+          f"{rep['max_d_vel_mps']:.3g} m/s against the reference (first "
+          f"100 m: {rep['max_d_pos_exec_m']:.3g} m, "
+          f"{rep['max_d_vel_exec_mps']:.3g} m/s); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 11. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]
-        main = dense_counts if name == "minplus" else launches
+        main = (dense_counts if name == "minplus" else
+                sqp_fleet_counts if name == "admm_vel" else launches)
         rows.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          launches=main[name], max_abs_err=s["err"],
                          ms=s["ms"], wrapper_ms=s["wrapper_ms"],
@@ -944,8 +1279,17 @@ def main():
                          launches_fleet_tick=launches.get(name, 0),
                          launches_facade_tick=facade_counts.get(name, 0.0),
                          launches_dense_window=dense_counts[name],
-                         facade_tick_ms=facade_ms.get(name),
-                         facade_tick_wrapper_ms=facade_wrapper_ms.get(name)))
+                         launches_sqp_fleet_tick=sqp_fleet_counts[name],
+                         launches_sqp_facade_tick=sqp_facade_counts[name],
+                         facade_tick_ms=s.get("facade_tick_ms",
+                                              facade_ms.get(name)),
+                         facade_tick_wrapper_ms=s.get(
+                             "facade_tick_wrapper_ms",
+                             facade_wrapper_ms.get(name)),
+                         plain_launches_per_solve=s.get("plain_launches"),
+                         facade_plain_ms=s.get("facade_plain_ms"),
+                         facade_bound_ms=s.get("facade_bound_ms"),
+                         ladder_ms=s.get("ladder_ms")))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

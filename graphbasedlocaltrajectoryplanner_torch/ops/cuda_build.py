@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("hit_slab", "window_dp", "backtrace", "vel_scan", "minplus")
+SOURCES = ("hit_slab", "window_dp", "backtrace", "vel_scan", "minplus",
+           "admm_vel")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
@@ -91,6 +92,7 @@ _ENTRY = {
     "vel_scan": ("vel_scan_launch",
                  [_P] * 11 + [_I, _P, _I, _I, _I] + [_F] * 7 + [_P]),
     "minplus": ("minplus_launch", [_P] * 4 + [_I] * 5 + [_P]),
+    "admm_vel": ("admm_vel_launch", [_P] * 15 + [_I] * 3 + [_F] * 4 + [_P]),
 }
 
 

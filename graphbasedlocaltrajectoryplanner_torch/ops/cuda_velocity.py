@@ -22,6 +22,17 @@ from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
 CHUNK = 16
 
 
+def kernel_machines(machines):
+    """The machine table as the kernel takes it, at least two knots: a
+    one-row table (the facade's default ``ax_max_machines``) is the
+    constant acceleration of its row under ``np.interp``, and the same row
+    twice (an interval of zero width) is that constant too."""
+    machines = machines.to(torch.float32)
+    if machines.shape[0] == 1:
+        machines = machines.expand(2, 2)
+    return machines.contiguous()
+
+
 def _launch(k1, gg, k2, ds, v_lim, v_init, mode, machines, exp, drag, m_veh,
             const_gg):
     R, T = k1.shape
@@ -33,7 +44,7 @@ def _launch(k1, gg, k2, ds, v_lim, v_init, mode, machines, exp, drag, m_veh,
         cb.require(x, torch.float32, (R, T), what)
     v_init = v_init.to(torch.float32).contiguous()
     mode = mode.to(torch.int32).contiguous()
-    machines = machines.to(torch.float32).contiguous()
+    machines = kernel_machines(machines)
     cb.require(v_init, torch.float32, (R,), "v_init")
     cb.require(mode, torch.int32, (R,), "mode")
     cb.require(machines, torch.float32, (machines.shape[0], 2), "machines")

@@ -6,9 +6,9 @@ warm-start state of the previous tick).  ``make_batched_tick`` returns one
 function that replans the full action set of a whole batch: obstacle
 selection, slab hit masks, the masked 4-slot window DP, horizon selection
 and the action-set decision tree, the backpointer walk, C2-refit path
-assembly, the constant-path splice, the fb velocity stage and the
-emergency brake profile — every stage on tensors with a leading scenario
-dimension, the kernels of ``ops/cuda_*.py`` on the card.
+assembly, the constant-path splice, the velocity stage (``fb`` or ``sqp``)
+and the emergency brake profile — every stage on tensors with a leading
+scenario dimension, the kernels of ``ops/cuda_*.py`` on the card.
 """
 
 from __future__ import annotations
@@ -253,16 +253,31 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
                   dyn_model_exp: float = 1.0,
                   drag_coeff: float = 0.85,
                   m_veh: float = 1000.0,
-                  kernels: bool = True):
+                  kernels: bool = True,
+                  vp_backend: str = "fb",
+                  sqp_x0: torch.Tensor = None,
+                  tire_end_idx: int = 0,
+                  tire_end_mps2: float = 5.0,
+                  sqp_m: int = None,
+                  sqp_step: float = 2.5):
     """One full action-set replan per scenario of the batch, from the
     obstacle selection ``obs`` and window DP ``out`` of
     :func:`_batched_window` on: the action-set decision tree, backtrace,
-    assembly, const-path splice, the fb velocity stage and the emergency
+    assembly, const-path splice, the velocity stage and the emergency
     profile.
+
+    :param vp_backend: the velocity backend, ``"fb"`` or ``"sqp"`` (the
+        reference's ``vp_type``; ``velplan.velocity_stage_scenario``).
+    :param sqp_x0: (B, 4, C_PAD + p_max) SQP warm-start profiles (None:
+        the reference's cold 20 m/s fill); ``tire_end_idx``,
+        ``tire_end_mps2``, ``sqp_m`` (the export points) and ``sqp_step``
+        (the spline step) are the SQP planner's window parameters.
 
     Output slots: [straight, follow, left, right, emergency].  Returns
     dict(trajs (B, 5, C_PAD + p_max, 7), valid (B, 5), cost (B, 5),
-    h_eff (B, 5), n_valid (B, 5), case_a, relabel, em_base (B,)).
+    h_eff (B, 5), n_valid (B, 5), case_a, relabel, em_base (B,)); under
+    ``sqp`` also qp_status (B, 4) int32 and vx_sqp (B, 4, C_PAD + p_max),
+    the raw profiles for the next tick's warm start.
     """
     dev = lat.device
     f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa
@@ -473,7 +488,9 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
         roll_cum, f32(lat.veh_length), f32(1.25), f32(0.025), f32(0.2),
         f32(15.0), dyn_model_exp, drag_coeff, m_veh,
         (float(gg_lim[0]), float(gg_lim[1])), follow_slot=pg.SLOT_FOLLOW,
-        kernels=kernels)
+        kernels=kernels, vp_backend=vp_backend, sqp_x0=sqp_x0,
+        veh_turn=f32(lat.veh_turn), tire_end_idx=tire_end_idx,
+        tire_end_mps2=f32(tire_end_mps2), sqp_m=sqp_m, sqp_step=sqp_step)
     trajs4 = o["trajs"]
     # broken velocity constraints remove overtake actions; follow and
     # straight are always retained
@@ -488,9 +505,13 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
     cost5 = torch.cat([cost_all, cost_all[rows, eb][:, None]], dim=1)
     h5 = torch.cat([h4, h4[rows, eb][:, None]], dim=1)
     nv5 = torch.cat([n_valid_full, n_valid_full[rows, eb][:, None]], dim=1)
-    return dict(trajs=trajs, valid=valid, cost=cost5,
-                h_eff=h5.to(torch.int32), n_valid=nv5.to(torch.int32),
-                case_a=case_a, relabel=relabel, em_base=em_base)
+    res = dict(trajs=trajs, valid=valid, cost=cost5,
+               h_eff=h5.to(torch.int32), n_valid=nv5.to(torch.int32),
+               case_a=case_a, relabel=relabel, em_base=em_base)
+    if vp_backend == "sqp":
+        res["qp_status"] = o["qp_status"]
+        res["vx_sqp"] = o["vx_sqp"]
+    return res
 
 
 def make_batched_tick(lat: Lattice, device=None, zone_block=None,
@@ -505,7 +526,9 @@ def make_batched_tick(lat: Lattice, device=None, zone_block=None,
 
     :param zone_block: ``(L, N)`` shared zone mask or ``(B, L, N)`` per
         scenario (default: no zones).
-    :param kw: options of :func:`scenario_tick`.
+    :param kw: options of :func:`scenario_tick` (``vp_backend="sqp"`` and
+        the SQP window parameters among them); ``tick(scen, **over)``
+        overrides them for one call, e.g. the warm start ``sqp_x0``.
     """
     dev = resolve_device(device)
     if lat.device != dev:
@@ -521,12 +544,12 @@ def make_batched_tick(lat: Lattice, device=None, zone_block=None,
     packed = pg.packed_edge_table(lat)
 
     @torch.no_grad()
-    def tick(scen: Scenario):
+    def tick(scen: Scenario, **over):
         if scen.start_layer.device != dev:
             scen = scen.to(dev)
         obs, window = _batched_window(lat, scen, zone_block, w_last_factors,
                                       kernels=kernels)
         return scenario_tick(lat, scen, obs, window, packed, kernels=kernels,
-                             **kw)
+                             **{**kw, **over})
 
     return tick

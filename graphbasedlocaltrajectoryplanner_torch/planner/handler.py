@@ -12,11 +12,15 @@ numeric work of a tick runs on the handler's device as a few batched calls:
     (kernels 1 and 2), one scenario;
   * ``pathgen.backtrace_slot`` + ``pathgen.assemble_action_kernel`` — one
     call each over every action of the tick (kernel 3);
-  * ``velplan.velocity_kernel`` — every action's fb profile in one call
-    (kernel 5), plus the opponent summary, the emergency profile and the
-    backup brake profile (kernel 5).
+  * ``velplan.velocity_kernel`` — every action's profile in one call: the
+    fb recurrences (kernel 5) or, under ``vp_type=sqp``, every action's
+    normal and follow QP as one batched ADMM solve (``csrc/admm_vel.cu``);
+    plus the opponent summary and the emergency profile (kernel 5) and the
+    backup-ladder brake profile (kernel 5 for fb, one ADMM solve for sqp).
 
-Only the ``fb`` velocity backend is ported; ``sqp`` raises.
+Under ``sqp`` the handler keeps the reference's cross-tick warm start: the
+previous solution per ``(plan, action)``, shifted by the distance travelled
+(VpSQP.py:297-340).
 """
 
 from __future__ import annotations
@@ -68,10 +72,7 @@ class OnlineHandler:
 
         if online_cfg.vp_type not in ("fb", "sqp"):
             raise ValueError("No valid velocity planner specified!")
-        if online_cfg.vp_type == "sqp":
-            raise NotImplementedError(
-                "the sqp velocity backend is not ported yet (ROADMAP.md, "
-                "queue 1, item 7); use vp_type=fb")
+        self.vp_backend = online_cfg.vp_type
         if online_cfg.max_solutions > 1:
             LOG.warning("max_solutions > 1 is not supported (single optimum "
                         "per action); continuing with 1.")
@@ -127,6 +128,10 @@ class OnlineHandler:
         self.last_bp_action_set = None  # {action: [np (n, 7)]}
         self.last_path_timestamp = None
         self.last_cut_idx = 0
+        # SQP cross-tick warm start: previous solution per (plan, action)
+        # and the travelled-distance anchor of the MPC shift
+        self.sqp_state = {}
+        self.sqp_s_glob_old = None
         self.pos_est = None
         self.action_id_forced = None
 
@@ -640,15 +645,58 @@ class OnlineHandler:
         return out
 
     # ------------------------------------------------------------------
+    def _tire_end_idx(self) -> int:
+        """Grid points of the SQP window's tire-end assumption."""
+        return int(np.ceil(self.cfg.delaycomp * 50
+                           / float(self.lat.sampled_resolution)))
+
+    def _sqp_warm_start(self, action_id, is_follow, param_vel, gg_pad,
+                        var_friction):
+        """``(key, x0, tire_end_mps2)`` of one action's SQP solve: the
+        previous solution stored under ``(plan, action)`` (cold: 20 m/s,
+        VpSQP:64), on the "slr" plan shifted by the distance travelled
+        since the anchor, which it then moves (VpSQP.py:297-340)."""
+        plan = "f" if is_follow else "slr"
+        key = (plan, action_id)
+        x0 = self.sqp_state.get(key)
+        if x0 is None:
+            x0 = np.full(self.P, 20.0, np.float32)
+        if plan == "slr":
+            step = float(self.lat.sampled_resolution)
+            s_glob = hostmath.get_s_coord(self.np_raceline, param_vel[0, 0:2],
+                                          self.np_s_rl, closed=True)[0]
+            old = self.sqp_s_glob_old
+            if old is None:
+                push = 1
+            elif np.round(s_glob) >= np.round(old):
+                push = (0 if np.round(s_glob) == np.round(old)
+                        else int(np.ceil((s_glob - old) / step)))
+            elif old > s_glob and s_glob - old < -100:
+                push = int(np.ceil((s_glob + self.np_s_rl[-1] - old) / step))
+            else:
+                push = 1
+            push = min(max(push, 0), self.P - 1)
+            if push:
+                x0 = np.concatenate([x0[push:],
+                                     np.full(push, x0[-1], np.float32)])
+            self.sqp_s_glob_old = s_glob
+        tire_end_mps2 = 3.0 if var_friction else float(gg_pad[0, 1])
+        self.sqp_x0_used[action_id] = np.asarray(x0, np.float32)
+        self.sqp_tire = (self._tire_end_idx(), tire_end_mps2)
+        return key, np.asarray(x0, np.float32), tire_end_mps2
+
     def calc_vel_profile(self, cut_index_pos, cut_layer, vel_plan, acc_plan,
                          vel_course, vel_est, vel_max, ax_max_machines,
                          safety_d, gg_scale, local_gg=(5.0, 5.0),
                          incl_emerg_traj=False):
-        """OTH.calc_vel_profile:603-1040 (fb backend)."""
+        """OTH.calc_vel_profile:603-1040."""
         lat = self.lat
         cfg = self.cfg
+        sqp = self.vp_backend == "sqp"
 
-        # normalize local gg (OTH:649-666)
+        # normalize local gg (OTH:649-666); a dict means per-point friction
+        # (the reference SQP's 3 m/s^2 tire-end assumption, VpSQP.py:74-79)
+        var_friction = isinstance(local_gg, dict)
         if not isinstance(local_gg, dict):
             if not isinstance(local_gg, tuple) or len(local_gg) != 2:
                 raise ValueError("Provided local_gg does not satisfy the "
@@ -673,6 +721,9 @@ class OnlineHandler:
         action_set_path_id = {}
         self.last_path_gg = {} if self.last_path_gg is None else self.last_path_gg
         new_path_gg = {}
+        # the SQP inputs used this tick, per action (observability)
+        self.sqp_x0_used = {}
+        self.sqp_tire = None
 
         # opponent summary for follow mode (device, once per tick)
         follow_needed = "follow" in self.last_path_param and self.obj_veh
@@ -698,7 +749,11 @@ class OnlineHandler:
         vc_pad[:c_len] = vel_course[:c_len]
 
         # ---- pass 1: cut every action and gather its velocity inputs ------
-        jobs = []       # (action_id, i, n_valid, is_follow, path, gg, row)
+        # (under sqp also its warm start, in the reference's action order:
+        # the first action on the "slr" plan shifts by the distance
+        # travelled since the last tick, later ones by 0)
+        jobs = []       # (action_id, i, n_valid, is_follow, path, gg, row,
+        #                  sqp: (key, x0, tire_end_mps2) or None)
         for action_id in list(self.last_path_param.keys()):
             new_bp[action_id] = []
             new_path_gg[action_id] = []
@@ -759,9 +814,14 @@ class OnlineHandler:
                 gg_pad[:gg_vel.shape[0]] = gg_vel
                 if gg_vel.shape[0] and gg_vel.shape[0] < self.P:
                     gg_pad[gg_vel.shape[0]:] = gg_vel[-1]
+                sqp_job = None
+                if sqp:
+                    sqp_job = self._sqp_warm_start(action_id, is_follow,
+                                                   param_vel, gg_pad,
+                                                   var_friction)
                 jobs.append((action_id, i, n_valid, is_follow, path_pad,
                              gg_pad, [float(red_len), v_end_rl, obj_dist,
-                                      v_obj, float(is_follow)]))
+                                      v_obj, float(is_follow)], sqp_job))
 
         # ---- every action's profile in one call ---------------------------
         if jobs:
@@ -773,6 +833,19 @@ class OnlineHandler:
             rows = self._f32([j[6] for j in jobs])
             ints = torch.as_tensor(np.array([c_len] + [j[2] for j in jobs],
                                             np.int64), device=self.dev)
+            sqp_kw = {}
+            if sqp:
+                sqp_kw = dict(
+                    vp_backend="sqp",
+                    sqp_x0=self._f32(np.stack([j[7][1] for j in jobs])),
+                    is_overtake=torch.as_tensor(
+                        [j[0] in ("left", "right") for j in jobs],
+                        device=self.dev),
+                    veh_turn=self._f32(lat.veh_turn),
+                    tire_end_idx=self._tire_end_idx(),
+                    tire_end_mps2=self._f32([j[7][2] for j in jobs]),
+                    sqp_m=int(cfg.nmbr_export_points),
+                    sqp_step=float(lat.sampled_resolution))
             out = vp.velocity_kernel(
                 self._f32(np.stack([j[4] for j in jobs])), ints[1:],
                 self._f32(np.stack([j[5] for j in jobs])), self._f32(vc_pad),
@@ -783,15 +856,25 @@ class OnlineHandler:
                 shared[8], shared[9], shared[10], shared[11],
                 self.dyn_model_exp, self.drag_coeff, self.m_veh,
                 control_type=cfg.controller_type,
-                filt_window=cfg.filt_window_width, kernels=self.kernels)
+                filt_window=cfg.filt_window_width, kernels=self.kernels,
+                **sqp_kw)
             trajs = _np(out["traj"])
             vel_bounds = _np(out["vel_bound"])
             too_close = _np(out["too_close"])
             v_controls = _np(out["follow_v_control"])
             control_d = float(out["follow_control_d"])
+            if sqp:
+                # the next tick's warm start; infeasible solves keep the
+                # previous one (VpSQP.py:244, 433-434)
+                status = _np(out["qp_status"])
+                vx_sqp = _np(out["vx_sqp"])
+                for r, job in enumerate(jobs):
+                    if int(status[r]) != -3:
+                        self.sqp_state[job[7][0]] = vx_sqp[r].astype(
+                            np.float32)
 
         # ---- pass 2: assemble / infeasibility ladder (OTH:943-1015) -------
-        for r, (action_id, i, n_valid, is_follow, _, _, row) in \
+        for r, (action_id, i, n_valid, is_follow, _, _, row, sqp_job) in \
                 enumerate(jobs):
             obj_dist, v_obj = row[2], row[3]
             vel_bound = bool(vel_bounds[r])
@@ -828,11 +911,22 @@ class OnlineHandler:
                     path_pad = self._pad_path(bpp)
                     gg_pad = np.ones((self.P, 2), np.float32) * 5.0
                     gg_pad[:nb] = bgg
-                    traj = vp.brake_on_backup_kernel(
-                        self._f32(path_pad), nb, self._f32(gg_pad),
-                        self._f32(vc_pad), c_len, self._f32(vel_plan),
-                        self.dyn_model_exp, self.drag_coeff, self.m_veh,
-                        kernels=self.kernels)
+                    if sqp:
+                        # the reference's SQP ladder brakes through the QP
+                        # with a 1 m/s cap (VpSQP.calc_vel_brake_em)
+                        traj = vp.brake_em_sqp_kernel(
+                            self._f32(path_pad), nb, self._f32(gg_pad),
+                            self._f32(vc_pad), c_len, self._f32(vel_plan),
+                            machines, self._f32(lat.veh_turn),
+                            self._f32(sqp_job[2]), self.drag_coeff,
+                            self.m_veh, sqp_m=int(cfg.nmbr_export_points),
+                            kernels=self.kernels)
+                    else:
+                        traj = vp.brake_on_backup_kernel(
+                            self._f32(path_pad), nb, self._f32(gg_pad),
+                            self._f32(vc_pad), c_len, self._f32(vel_plan),
+                            self.dyn_model_exp, self.drag_coeff, self.m_veh,
+                            kernels=self.kernels)
                     new_bp[action_id][i] = _np(traj)[:nb]
             else:
                 LOG.warning("Removed action set, since vel constraints "

@@ -99,7 +99,8 @@ def left_half_zone(nodes_in_layer: np.ndarray):
 
 
 def drive(ltpl, n_ticks: int, pos, heading, obj_list=None, zones=None,
-          replay=None, on_tick=None, fake_clock: bool = True, timings=None):
+          replay=None, on_tick=None, fake_clock: bool = True, timings=None,
+          vel_kw=None):
     """Drive ``ltpl`` (``graph_init`` done) for ``n_ticks`` ticks under a
     fresh fake clock (or the real one, ``fake_clock=False``), with the
     emergency trajectory in every action set.
@@ -113,6 +114,10 @@ def drive(ltpl, n_ticks: int, pos, heading, obj_list=None, zones=None,
     :param timings: a list that receives each tick's host-clock seconds of
         ``calc_paths`` + ``calc_vel_profile`` (the planner's work; the
         vehicle dummy and the log are outside).
+    :param vel_kw: ``vel_kw(tick, ltpl) -> dict`` of ``calc_vel_profile``
+        arguments that replace the defaults (``vel_max``, ``gg_scale``,
+        ``local_gg``) on that tick — a dynamic-parameter schedule, computed
+        from each planner's own state on replay too.
     :returns: record list, one dict per tick: ``sel``, ``objects``,
         ``pos``, ``vel`` (inputs), ``traj_set`` and ``nodes`` (outputs).
     """
@@ -141,10 +146,12 @@ def drive(ltpl, n_ticks: int, pos, heading, obj_list=None, zones=None,
                 pos, vel = vdc_dummy(pos, t[:, 0], t[:, 1:3], t[:, 5],
                                      TICK_DT)
             t0 = time.perf_counter()
-            traj_set = ltpl.calc_vel_profile(
-                pos_est=pos, vel_est=vel, vel_max=VEL_MAX,
-                ax_max_machines=MACHINES, safety_d=SAFETY_D,
-                incl_emerg_traj=True)[0]
+            kw = dict(vel_max=VEL_MAX, ax_max_machines=MACHINES,
+                      safety_d=SAFETY_D, incl_emerg_traj=True)
+            if vel_kw is not None:
+                kw.update(vel_kw(tick, ltpl))
+            traj_set = ltpl.calc_vel_profile(pos_est=pos, vel_est=vel,
+                                             **kw)[0]
             if timings is not None:
                 timings.append(t_paths + time.perf_counter() - t0)
             ltpl.log()

@@ -144,10 +144,11 @@ def test_facade_device_and_backend_contract(runs, tmp_path):
             GraphLTPL(pd)
     with pytest.raises(NotImplementedError, match="visual"):
         GraphLTPL(pd, visual_mode=True, device="cpu")
+    # the sqp velocity backend is ported (tests/test_torch_sqp.py drives it)
     pd_sqp = dict(runs["oval"]["pd"], ltpl_online_param_path=SQP_INI)
     ltpl = GraphLTPL(pd_sqp, log_to_file=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="sqp"):
-        ltpl.graph_init()
+    ltpl.graph_init()
+    assert ltpl._oth.vp_backend == "sqp"
 
 
 def _velocity_inputs(runs, seed):

@@ -229,3 +229,28 @@ def test_stacked_vel_scan_matches_jax(exp):
         jnp.asarray(vlim), jnp.asarray(vinit), jnp.asarray(modes),
         jnp.asarray(machines), exp, 0.85, 1000.0, 10.0, 9.0))
     assert float(np.abs(cgg - ref_c).max()) <= 1e-3
+
+
+def test_one_row_machine_table():
+    """A one-row machine table (the facade's default ``ax_max_machines``)
+    is a constant acceleration, as ``np.interp`` reads it: the JAX package
+    and the plain version agree, and the two-knot table the kernel's
+    wrapper passes instead (``cuda_velocity.kernel_machines``) gives the
+    plain version's result bit for bit."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_velocity
+    rng = np.random.default_rng(3)
+    R, T = 9, 127
+    modes, kappa, ax, ay, ds, vlim, vinit = _vel_rows(rng, R, T, pad=10)
+    one = np.array([[100.0, 5.0]], np.float32)
+    ref = np.asarray(jvel.stacked_vel_scan(
+        *[jnp.asarray(x) for x in (kappa, ax, ay, kappa, ax, ay, ds, vlim,
+                                   vinit, modes, one)], 1.0, 0.85, 1000.0))
+    t = torch.from_numpy
+    args = [t(x) for x in (kappa, ax, ay, kappa, ax, ay, ds, vlim, vinit,
+                           modes)]
+    got = tvel.stacked_vel_scan(*args, t(one), 1.0, 0.85, 1000.0)
+    two = cuda_velocity.kernel_machines(t(one))
+    assert two.shape == (2, 2) and two.is_contiguous()
+    assert torch.equal(tvel.stacked_vel_scan(*args, two, 1.0, 0.85, 1000.0),
+                       got)
+    assert float(np.abs(got.numpy() - ref).max()) <= 1e-3

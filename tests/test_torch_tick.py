@@ -7,6 +7,7 @@ cross-backend bar (2 mm, 0.02 m/s)."""
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -107,3 +108,29 @@ def test_tick_unclosed_monteblanco():
     jo = _jax_tick(ja)(js, np.zeros((lat.L, lat.N), bool))
     to = tsc.make_batched_tick(lat, device="cpu")(ts)
     _compare(jo, to, "unclosed Monteblanco B=4")
+
+
+MACHINES_4 = np.array([[0.0, 7.0], [20.0, 6.0], [45.0, 4.5], [80.0, 3.0]],
+                      np.float32)
+PHYSICS = {
+    "exp1.5_machines4": dict(dyn_model_exp=1.5, machines=MACHINES_4),
+    "gg12x9_vmax55": dict(gg_lim=(12.0, 9.0), vel_max=55.0),
+    "drag1.1_m1200": dict(drag_coeff=1.1, m_veh=1200.0),
+}
+
+
+@pytest.mark.parametrize("name", list(PHYSICS))
+def test_tick_nondefault_physics(oval, name):
+    """The tick at other vehicle and friction parameters: small oval, B=8,
+    seed 0, 1 opponent."""
+    ja, lat = oval
+    kw = PHYSICS[name]
+    js, ts = _scenarios(ja, lat, 8, 0, n_objects=1)
+    jkw, tkw = dict(kw), dict(kw)
+    if "machines" in kw:
+        jkw["machines"] = jnp.asarray(kw["machines"])
+        tkw["machines"] = torch.from_numpy(kw["machines"])
+    jo = jax.jit(lambda scen: jax.vmap(
+        lambda s: jsc.scenario_tick(ja, s, **jkw))(scen))(js)
+    to = tsc.make_batched_tick(lat, device="cpu", **tkw)(ts)
+    _compare(jo, to, f"oval B=8 {name}")
