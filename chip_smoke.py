@@ -44,15 +44,21 @@ unclosed Monteblanco lattice with the port's builder, then:
 5. times the facade per tick (``calc_paths`` + ``calc_vel_profile``) on
    the real clock;
 6. the SQP velocity backend (``vp_type=sqp``): the ADMM kernel
-   (``csrc/admm_vel.cu``) bit-equal to its plain version
-   (``ops/qp.admm_vel_qp``) on the SQP fleet tick's and the SQP facade's
-   recorded calls and on the seeded ragged calls of
-   ``testing_tools/admm_cases``, timed beside its bound and the plain
-   version (and the plain version's kernel launches a solve); the fleet
-   tick under ``vp_backend="sqp"`` at batch 1024, kernels against plain;
-   the facade under the SQP INI on the oval (kernels against plain, tick
-   by tick, latency per tick) and into the unclosed Monteblanco track end,
-   where the SQP backup ladder (``brake_em_sqp_kernel``) brakes;
+   (``csrc/admm_vel.cu``: its warp design for n <= 128, its block design
+   above, each line naming the one that ran) bit-equal to its plain
+   version (``ops/qp.admm_vel_qp``) on the SQP fleet tick's, the SQP
+   facade's and the SQP ladder's recorded calls and on the seeded ragged
+   calls of ``testing_tools/admm_cases``, timed beside the kernel's first
+   design, one block a row, on the same calls
+   (``testing_tools/admm_variants.cu``), one row's chain floor, its bounds
+   (67 TFLOP/s, and one add or multiply a lane and cycle, since it may not
+   contract) and the plain version (and the plain version's kernel
+   launches a solve); the fleet tick under
+   ``vp_backend="sqp"`` at batch 1024, kernels against plain, and one warm
+   sqp tick under ``torch.profiler``; the facade under the SQP INI on the
+   oval (kernels against plain, tick by tick, latency per tick) and into
+   the unclosed Monteblanco track end, where the SQP backup ladder
+   (``brake_em_sqp_kernel``) brakes;
 7. replays the recorded reference run ``ref_unclosed_monteblanco_220``
    through the facade with the kernels (``parity/replay_torch.py``) at the
    north-star bar (2 cm, 0.1 m/s).
@@ -86,6 +92,10 @@ B = 1024
 # float32 rate outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# float32 adds or multiplies without contraction into FMAs (the ADMM kernel
+# is built with -fmad=false and must round each on its own): one a lane and
+# cycle, 132 SMs x 128 lanes x 1.98 GHz
+PEAK_F32_NOFMA_OPS_S = 132 * 128 * 1.98e9
 TPU = "graphbasedlocaltrajectoryplanner_tpu/ops/"
 CSRC = "graphbasedlocaltrajectoryplanner_torch/csrc/"
 KERNELS = [
@@ -486,12 +496,20 @@ def _cost_admm(d, iters, n_out):
     return nb, ops
 
 
-def admm_held_and_timed(where, d, kw, plain_reps=0):
+def admm_held_and_timed(where, d, kw, plain_reps=0, variant=None,
+                        chain=None):
     """One recorded ADMM call: the kernel (with the duals) bit-equal to
     ``qp.admm_vel_qp`` on spoiled output memory, then timed on the device
     and per wrapper call (the plain version too when ``plain_reps``),
-    beside its bound.  Prints a line, returns the numbers."""
-    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_admm, qp
+    beside the block design on the same call (``variant``, the launch of
+    ``testing_tools/admm_variants.cu``), one row's chain floor (``chain``,
+    ms) and both bounds: f32 operations at 67 TFLOP/s and at one add or
+    multiply a lane and cycle.  Prints a line naming the design that ran,
+    returns the numbers."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import (cuda_admm,
+                                                            cuda_build, qp)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        admm_variants as av)
     iters = kw.get("iters", 60)
     w_smooth = kw.get("w_smooth", 1e-4)
     px, pr = qp.admm_vel_qp(d, iters=iters, w_smooth=w_smooth)
@@ -516,16 +534,31 @@ def admm_held_and_timed(where, d, kw, plain_reps=0):
     plain_ms = (_median_ms(lambda: qp.admm_vel_qp(d, iters=iters,
                                                   w_smooth=w_smooth),
                            plain_reps) if plain_reps else None)
+    baseline_ms = (av.variant_ms(_device_ms, variant, cuda_build, "baseline",
+                                 d, kw, cuda_admm.WARP_ROWS)
+                   if variant is not None else None)
     nb, ops = _cost_admm(d, iters, (kx, kr["r_prim"], kr["r_dual"]))
     bound_ms, by = _bound(nb, ops)
-    print(f"kernel admm_vel {where} {d['q'].numel() // d['q'].shape[-1]} "
-          f"rows [{'x'.join(map(str, d['q'].shape))}] {iters} iterations: "
-          f"max|kernel-plain|={err:.3g} (x, r_prim, r_dual, y bit-equal) "
-          f"kernel {ms:.4f} ms on the device, {wrapper_ms:.4f} ms a wrapper "
-          f"call; " + (f"plain {plain_ms:.4f} ms " if plain_reps else "")
-          + f"bound {bound_ms:.4f} ms ({by}: {nb} B, {ops} ops)", flush=True)
+    nofma_ms = max(ops / PEAK_F32_NOFMA_OPS_S, nb / PEAK_BYTES_S) * 1e3
+    n = d["q"].shape[-1]
+    design = cuda_admm.design(n)
+    print(f"kernel admm_vel {where} {d['q'].numel() // n} "
+          f"rows [{'x'.join(map(str, d['q'].shape))}] {iters} iterations, "
+          f"{design} design: max|kernel-plain|={err:.3g} (x, r_prim, r_dual, "
+          f"y bit-equal) kernel {ms:.4f} ms on the device, {wrapper_ms:.4f} "
+          f"ms a wrapper call; "
+          + (f"block design {baseline_ms:.4f} ms; "
+             if baseline_ms is not None else "")
+          + (f"faster than it: {ms < baseline_ms}; "
+             if baseline_ms is not None else "")
+          + (f"chain floor {chain:.4f} ms; " if chain is not None else "")
+          + (f"plain {plain_ms:.4f} ms " if plain_reps else "")
+          + f"bound {bound_ms:.5f} ms ({by}: {nb} B, {ops} ops), "
+          f"{nofma_ms:.5f} ms without FMA", flush=True)
     return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, err=err)
+                bound_ms=bound_ms, bound_by=by, err=err,
+                baseline_ms=baseline_ms, bound_nofma_ms=nofma_ms,
+                design=design)
 
 
 def plain_admm_launches(d, kw):
@@ -546,7 +579,8 @@ def plain_admm_launches(d, kw):
 def ragged_admm():
     """The ADMM kernel against its plain version, bit-equal (x, r_prim,
     r_dual, y) on spoiled output memory, on the seeded calls of
-    ``testing_tools/admm_cases``.  Returns the number of calls."""
+    ``testing_tools/admm_cases``, a line each naming the design that ran.
+    Returns the number of calls."""
     from graphbasedlocaltrajectoryplanner_torch.ops import cuda_admm, qp
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         admm_cases as ac)
@@ -564,7 +598,38 @@ def ragged_admm():
             _check(a.shape == b.shape and torch.equal(a, b),
                    f"ragged admm_vel {ac.label(i)}: {what} differs in "
                    f"{int((a != b).sum())} of {a.numel()} places")
+        print(f"ragged admm_vel {ac.label(i)}, "
+              f"{cuda_admm.design(ac.CASES[i][0])} design: x, r_prim, "
+              f"r_dual, y bit-equal", flush=True)
     return len(ac.CASES)
+
+
+def profile_device(fn):
+    """``fn()`` once under ``torch.profiler``: its device kernels (kernel
+    events only: the aten ops that launch them carry the same device time
+    again) as ``dict(n, busy_ms, top, ms_of)``, ``top`` the six longest by
+    name, ``ms_of(word)`` the device time of the kernels whose name holds
+    ``word``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def self_dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    dev = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA") and self_dev_us(e) > 0]
+    top = sorted(dev, key=self_dev_us, reverse=True)[:6]
+    return dict(
+        n=sum(e.count for e in dev),
+        busy_ms=sum(self_dev_us(e) for e in dev) / 1e3,
+        top=[f"{e.key[:48]} x{e.count} {self_dev_us(e) / 1e3:.3f} ms"
+             for e in top],
+        ms_of=lambda word: sum(self_dev_us(e) for e in dev
+                               if word in e.key) / 1e3)
 
 
 def _sqp_pd(store, tname, track):
@@ -631,6 +696,8 @@ def main():
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         closed_loop as cl)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        admm_variants as av)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         vel_cases as vc)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         vel_scan_variants as vv)
@@ -656,15 +723,20 @@ def main():
     # ---- 2. kernels -------------------------------------------------------
     t0 = time.perf_counter()
     wv_build = wv.start_build(cuda_build)      # alongside the kernels
+    av_build = av.start_build(cuda_build)
     built = cuda_build.build_all()
     bt_variant, _ = wv.load_variants(wv_build)
+    admm_variant, _ = av.load_variants(av_build)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{sorted(built) or 'nothing (cached)'} and "
-          f"testing_tools/walk_variants.cu", flush=True)
+          f"testing_tools/{{walk,admm}}_variants.cu", flush=True)
     for name, (secs, log) in sorted(built.items()):
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                 if "registers" in ln]
         print(f"  {name}: nvcc {secs:.1f} s; ptxas: {' | '.join(regs)}")
+        if name == "admm_vel":      # each instance by name: warp and block
+            for ln in av.ptxas_lines(log):
+                print(f"    {ln}")
 
     # the branch-free division and square root of the velocity scans
     # (csrc/ieee_fast.cuh) against the plain operators, 2^32 operands a case
@@ -811,7 +883,6 @@ def main():
 
     # where the time goes: one kernel tick (oval, 1 opponent) under
     # torch.profiler — device kernels launched and their summed time
-    from torch.profiler import ProfilerActivity, profile
     tick_k = sc.make_batched_tick(oval, device="cuda")
     tick_k(scen1)
     torch.cuda.synchronize()
@@ -819,28 +890,13 @@ def main():
     tick_k(scen1)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tick_k(scen1)
-        torch.cuda.synchronize()
-    ka = prof.key_averages()
-
-    def self_dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    # kernel events only: the aten ops that launch them carry the same
-    # device time again
-    dev = [e for e in ka if str(e.device_type).endswith("CUDA")
-           and self_dev_us(e) > 0]
-    busy_ms = sum(self_dev_us(e) for e in dev) / 1e3
-    n_dev = sum(e.count for e in dev)
-    top = sorted(dev, key=self_dev_us, reverse=True)[:6]
-    if n_dev:
-        print(f"profile tick oval_1opp B={B} on {card}: {n_dev} device "
-              f"kernels, device busy {busy_ms:.2f} ms of a {wall_ms:.2f} ms "
-              f"unprofiled tick ({100 * busy_ms / wall_ms:.1f} %); top: "
-              + "; ".join(f"{e.key[:48]} x{e.count} "
-                          f"{self_dev_us(e) / 1e3:.3f} ms" for e in top))
+    prof = profile_device(lambda: tick_k(scen1))
+    if prof["n"]:
+        print(f"profile tick oval_1opp B={B} on {card}: {prof['n']} device "
+              f"kernels, device busy {prof['busy_ms']:.2f} ms of a "
+              f"{wall_ms:.2f} ms unprofiled tick "
+              f"({100 * prof['busy_ms'] / wall_ms:.1f} %); top: "
+              + "; ".join(prof["top"]))
     else:
         print("profile: the profiler saw no device time (not measured)")
 
@@ -1135,8 +1191,32 @@ def main():
           f" m/s; kernel tick {t_med * 1e3:.2f} ms = {B / t_med:.1f} "
           f"replans/s; plain tick {tp_med * 1e3:.2f} ms = "
           f"{B / tp_med:.1f} replans/s", flush=True)
+    # where the time of a warm sqp tick goes (torch.profiler)
+    prof = profile_device(lambda: tick_k(scen1, sqp_x0=warm))
+    if prof["n"]:
+        admm_ms = prof["ms_of"]("admm")
+        print(f"profile tick oval_1opp sqp B={B} warm on {card}: "
+              f"{prof['n']} device kernels, device busy "
+              f"{prof['busy_ms']:.2f} ms of a {t_med * 1e3:.2f} ms "
+              f"unprofiled tick ({100 * prof['busy_ms'] / (t_med * 1e3):.1f}"
+              f" %); admm_vel {admm_ms:.3f} ms on the device "
+              f"({100 * admm_ms / prof['busy_ms']:.1f} % of the busy time, "
+              f"{100 * admm_ms / (t_med * 1e3):.1f} % of the tick); top: "
+              + "; ".join(prof["top"]), flush=True)
+    else:
+        print("profile sqp tick: the profiler saw no device time (not "
+              "measured)")
     a, kw = sqp_rec.calls["admm_vel"][0]
-    stats["admm_vel"] = admm_held_and_timed("fleet call", a[0], kw, 3)
+    # one row's chain of 150 steps: the slope between 150 and 600 steps on
+    # the fleet call's first row alone
+    admm_chain_ms, one_ms, four_ms = av.chain_floor(_device_ms, a[0], kw)
+    print(f"chain admm_vel fleet call row 0: one row's {av.STEPS} steps "
+          f"{admm_chain_ms:.5f} ms on {card} (slope between {av.STEPS} and "
+          f"{4 * av.STEPS} steps); kernel on 1 row {one_ms:.4f} ms, on 4 "
+          f"rows {four_ms:.4f} ms", flush=True)
+    stats["admm_vel"] = admm_held_and_timed("fleet call", a[0], kw, 3,
+                                            admm_variant, admm_chain_ms)
+    stats["admm_vel"]["chain_floor_ms"] = admm_chain_ms
     stats["admm_vel"]["plain_launches"] = plain_admm_launches(a[0], kw)
     print(f"plain admm_vel, one fleet solve on the card: "
           f"{stats['admm_vel']['plain_launches']} device kernels",
@@ -1197,8 +1277,10 @@ def main():
           f"{SQP_TICKS_OVAL - 1}) p50 {sqp_p50:.2f} ms p99 {sqp_p99:.2f} ms; "
           f"plain replay {t_p:.1f} s", flush=True)
     a, kw = fac_rec.calls["admm_vel"][0]
-    fac = admm_held_and_timed("facade tick 15 call", a[0], kw, 3)
+    fac = admm_held_and_timed("facade tick 15 call", a[0], kw, 3,
+                              admm_variant, admm_chain_ms)
     stats["admm_vel"]["facade_tick_ms"] = fac["ms"]
+    stats["admm_vel"]["facade_baseline_ms"] = fac["baseline_ms"]
     stats["admm_vel"]["facade_tick_wrapper_ms"] = fac["wrapper_ms"]
     stats["admm_vel"]["facade_plain_ms"] = fac["plain_ms"]
     stats["admm_vel"]["facade_bound_ms"] = fac["bound_ms"]
@@ -1231,8 +1313,9 @@ def main():
     lad_calls = [(a, kw) for a, kw in lad_rec.calls["admm_vel"]
                  if a[0]["q"].dim() == 1]
     lad = admm_held_and_timed("ladder call", lad_calls[0][0][0],
-                              lad_calls[0][1], 3)
+                              lad_calls[0][1], 3, admm_variant, admm_chain_ms)
     stats["admm_vel"]["ladder_ms"] = lad["ms"]
+    stats["admm_vel"]["ladder_baseline_ms"] = lad["baseline_ms"]
     print(f"facade sqp unclosed_monteblanco {SQP_TICKS_UNCLOSED} ticks "
           f"(start layer {SQP_START_LAYER_UNCLOSED}) on {card}: SQP backup "
           f"ladder {len(ladder)} times, one admm_vel launch each", flush=True)
@@ -1289,7 +1372,12 @@ def main():
                          plain_launches_per_solve=s.get("plain_launches"),
                          facade_plain_ms=s.get("facade_plain_ms"),
                          facade_bound_ms=s.get("facade_bound_ms"),
-                         ladder_ms=s.get("ladder_ms")))
+                         ladder_ms=s.get("ladder_ms"),
+                         design=s.get("design"),
+                         baseline_ms=s.get("baseline_ms"),
+                         facade_baseline_ms=s.get("facade_baseline_ms"),
+                         ladder_baseline_ms=s.get("ladder_baseline_ms"),
+                         bound_nofma_ms=s.get("bound_nofma_ms")))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
