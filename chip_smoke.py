@@ -61,7 +61,18 @@ unclosed Monteblanco lattice with the port's builder, then:
    (``brake_em_sqp_kernel``) brakes;
 7. replays the recorded reference run ``ref_unclosed_monteblanco_220``
    through the facade with the kernels (``parity/replay_torch.py``) at the
-   north-star bar (2 cm, 0.1 m/s).
+   north-star bar (2 cm, 0.1 m/s);
+8. the fleet tick's options at batch 1024 on the default oval with one
+   opponent, kernels against plain on the same card, each kernel's
+   launches per run: ``filt_window=5``, ``incl_emergency=False``,
+   ``p_max`` one block of 64 rows above the default, the ``until``
+   cutoffs ``"assembly"`` and ``"decide"``, and the sqp tick at that
+   ``p_max`` (naming the ADMM design that ran); the stage profile
+   (``parallel/profiling.py``): the fb and the warm sqp tick's device
+   time, host time and launches by ``gltpl.*`` range, and the fb tick's
+   cumulative stage times; the log replay (``utils/replay.py``) of the
+   data log that the oval facade drive of 4 wrote, with the kernels and
+   with the plain versions, equal reports.
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -620,8 +631,10 @@ def profile_device(fn):
     def self_dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
+    # the profiler also draws a device span per gltpl.* range: not a kernel
     dev = [e for e in prof.key_averages()
-           if str(e.device_type).endswith("CUDA") and self_dev_us(e) > 0]
+           if str(e.device_type).endswith("CUDA") and self_dev_us(e) > 0
+           and not e.key.startswith("gltpl.")]
     top = sorted(dev, key=self_dev_us, reverse=True)[:6]
     return dict(
         n=sum(e.count for e in dev),
@@ -677,6 +690,163 @@ class Recorder:
         return False
 
 
+def _run_counted(wrapper, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before it
+    and read just after (synchronised)."""
+    for _, path, *_ in KERNELS:
+        wrapper(path).launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: wrapper(path).launches for name, path, *_ in KERNELS}
+
+
+def _held(label, out_k, out_p, exact, traj):
+    """Kernel output against plain output: ``exact`` fields equal, the
+    ``traj`` tensor within 2 mm (x, y and s columns) and 0.02 m/s (vx)."""
+    for k in exact:
+        _check(torch.equal(out_k[k], out_p[k]), f"{label}: {k} differs")
+    d = (out_k[traj].double() - out_p[traj].double()).abs()
+    _check(bool(torch.isfinite(out_k[traj]).all()), f"{label}: non-finite")
+    if traj == "trajs":
+        d_pos, d_vx = float(d[..., 0:3].max()), float(d[..., 5].max())
+    else:                                   # paths [x y psi kappa el]
+        d_pos, d_vx = float(d[..., 0:2].max()), 0.0
+    _check(d_pos <= 2e-3 and d_vx <= 0.02,
+           f"{label}: deviates by {d_pos} m, {d_vx} m/s")
+    return d_pos, d_vx
+
+
+def options_phase(oval, scen, card, wrapper, fb_prof):
+    """Phase 8 of the docstring: the fleet tick's options, kernels against
+    plain, then the stage profile."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_admm
+    from graphbasedlocaltrajectoryplanner_torch.parallel import profiling
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        profile_stages)
+    exact = ("valid", "h_eff", "cost", "n_valid", "case_a", "relabel",
+             "em_base")
+    p_big = sc.default_p_max(oval) + 64
+    fleet5 = set(FLEET)
+    runs = [
+        ("filt_window=5", dict(filt_window=5), exact, "trajs", fleet5),
+        ("incl_emergency=False", dict(incl_emergency=False), exact,
+         "trajs", fleet5),
+        (f"p_max={p_big}", dict(p_max=p_big), exact, "trajs", fleet5),
+        ("until=assembly", dict(until="assembly"),
+         ("n_valid", "cost", "h_eff", "valid"), "paths",
+         {"hit_slab", "window_dp", "backtrace"}),
+        ("until=decide", dict(until="decide"), ("src", "h_eff", "valid"),
+         "h_eff", {"hit_slab", "window_dp"}),
+    ]
+    for label, kw, fields, traj, need in runs:
+        tick_k = sc.make_batched_tick(oval, device="cuda", **kw)
+        tick_p = sc.make_batched_tick(oval, device="cuda", kernels=False,
+                                      **kw)
+        out_k, counts = _run_counted(wrapper, lambda: tick_k(scen))
+        _check(all(counts[k] > 0 for k in need),
+               f"options {label}: a kernel was not launched: {counts}")
+        out_p = tick_p(scen)
+        torch.cuda.synchronize()
+        d_pos, d_vx = _held(f"options {label}", out_k, out_p, fields, traj)
+        shape = tuple(out_k[traj].shape)
+        print(f"options tick oval_1opp B={B} {label} on {card}: kernel "
+              f"launches { {k: v for k, v in counts.items() if v} }; "
+              f"{', '.join(fields)} equal; {traj} {shape} max|d pos|="
+              f"{d_pos:.3g} m max|d vx|={d_vx:.3g} m/s", flush=True)
+
+    sqp_kw = dict(profile_stages.sqp_options(oval), p_max=p_big)
+    tick_k = sc.make_batched_tick(oval, device="cuda", **sqp_kw)
+    tick_p = sc.make_batched_tick(oval, device="cuda", kernels=False,
+                                  **sqp_kw)
+    rec = Recorder({"admm_vel": (cuda_admm, "admm_vel")})
+    with rec:
+        out_k, counts = _run_counted(wrapper, lambda: tick_k(scen))
+    _check(all(counts[k] > 0 for k in ("hit_slab", "window_dp", "backtrace",
+                                       "vel_scan", "admm_vel")),
+           f"options sqp p_max={p_big}: a kernel was not launched: {counts}")
+    out_p = tick_p(scen)
+    torch.cuda.synchronize()
+    d_pos, d_vx = _held(f"options sqp p_max={p_big}", out_k, out_p,
+                        exact + ("qp_status",), "trajs")
+    n = rec.calls["admm_vel"][0][0][0]["q"].shape[-1]
+    print(f"options tick oval_1opp sqp B={B} p_max={p_big} on {card}: "
+          f"kernel launches { {k: v for k, v in counts.items() if v} }; "
+          f"equal fields and qp_status equal; trajs "
+          f"{tuple(out_k['trajs'].shape)} max|d pos|={d_pos:.3g} m "
+          f"max|d vx|={d_vx:.3g} m/s; admm_vel rows of n={n} points, "
+          f"{cuda_admm.design(n)} design", flush=True)
+
+    # the stage profile: device time by launching gltpl.* range
+    t0 = time.perf_counter()
+    traces = {"fb": profiling.stage_timings_trace(oval, scen),
+              "sqp warm": profiling.stage_timings_trace(
+                  oval, scen, **profile_stages.sqp_options(oval))}
+    for name, tr in traces.items():
+        _check(tr is not None, f"stage profile {name}: no device kernel")
+        tot = sum(tr["stage_ms"].values())
+        _check(abs(tot - tr["total_ms"]) <= 0.01 * tr["total_ms"],
+               f"stage profile {name}: stages {tot} ms != {tr['total_ms']}")
+        _check(tr["unmatched_launches"] == 0
+               and all(tr["stage_ms"][k] > 0
+                       for k in ("window", "assembly", "velocity")),
+               f"stage profile {name}: not attributed: {tr}")
+        print(f"stage profile tick oval_1opp {name} B={B} on {card}: "
+              f"device {tr['total_ms']:.3f} ms a tick over "
+              f"{tr['launches']} kernels; host {tr['tick_ms']:.3f} ms a "
+              f"tick unprofiled, {tr['profiled_tick_ms']:.3f} ms profiled; "
+              f"stages (ms) {tr['stage_ms']}; shares {tr['stage_share']}",
+              flush=True)
+        for scope, v in tr["scopes"].items():
+            print(f"  scope {scope}: device {v['device_ms']:.4f} ms, host "
+                  f"{v['host_ms']:.4f} ms, {v['launches']:g} launches a "
+                  f"tick", flush=True)
+    fb = traces["fb"]
+    if fb_prof["n"]:
+        ratio = fb["total_ms"] / fb_prof["busy_ms"]
+        print(f"stage profile fb against phase 2's profile: "
+              f"{fb['total_ms']:.3f} ms and {fb['launches']} kernels "
+              f"against {fb_prof['busy_ms']:.3f} ms and {fb_prof['n']} "
+              f"(ratio {ratio:.3f})", flush=True)
+        _check(0.8 <= ratio <= 1.25,
+               "stage profile fb: disagrees with the tick's profile")
+    range_us = profiling.range_cost_us()
+    print(f"gltpl ranges: {range_us:.2f} us of host time a range when no "
+          f"profiler listens; {len(traces['fb']['scopes']) - 1} ranges a "
+          f"fb tick, {len(traces['sqp warm']['scopes']) - 1} a sqp tick",
+          flush=True)
+    st = profiling.stage_timings(oval, scen)
+    print(f"stage timings tick oval_1opp fb B={B} on {card} (host clock, "
+          f"synchronised; median of 3 windows of 10): {st['stage_ms']} ms, "
+          f"total {st['total_ms']} ms; shares {st['stage_share']}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def log_replay_phase(data_csv, lat, card, wrapper):
+    """Phase 8 of the docstring, last part: the oval facade drive's data
+    log replayed with the kernels and with the plain versions."""
+    import dataclasses
+    from graphbasedlocaltrajectoryplanner_torch.utils import replay
+    t0 = time.perf_counter()
+    rep_k, counts = _run_counted(wrapper, lambda: (
+        replay.replay_validate(data_csv, lat, device="cuda")))
+    t_k = time.perf_counter() - t0
+    rep_p = replay.replay_validate(data_csv, lat, device="cuda",
+                                   kernels=False)
+    _check(dataclasses.asdict(rep_k) == dataclasses.asdict(rep_p),
+           f"log replay: kernel report {rep_k} != plain report {rep_p}")
+    _check(rep_k.ticks > 0 and counts["window_dp"] > 0
+           and counts["backtrace"] > 0,
+           f"log replay: nothing re-planned ({rep_k.ticks} ticks, {counts})")
+    print(f"log replay {os.path.basename(data_csv)} on {card}: "
+          f"{rep_k.ticks} ticks, {rep_k.actions_checked} actions checked, "
+          f"edge violations {rep_k.edge_violations}, node mismatches "
+          f"{rep_k.node_mismatches} ({rep_k.node_mismatch_failures} "
+          f"failures), ok={rep_k.ok}; kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} }; kernels "
+          f"report == plain report; kernel replay {t_k:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -703,6 +873,8 @@ def main():
         vel_scan_variants as vv)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         walk_variants as wv)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        profile_stages)
     mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
                 cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity,
                 cuda_minplus=cuda_minplus, cuda_admm=cuda_admm)
@@ -890,7 +1062,7 @@ def main():
     tick_k(scen1)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    prof = profile_device(lambda: tick_k(scen1))
+    prof = fb_prof = profile_device(lambda: tick_k(scen1))
     if prof["n"]:
         print(f"profile tick oval_1opp B={B} on {card}: {prof['n']} device "
               f"kernels, device busy {prof['busy_ms']:.2f} ms of a "
@@ -1010,6 +1182,9 @@ def main():
               "log_path": os.path.join(store, "logs")}
         ltpl_k = GraphLTPL(pd, device="cuda")
         ltpl_k.graph_init()
+        if tname == "oval":             # replayed from its log in phase 11
+            oval_log = (ltpl_k._path_dict["graph_log_data_path"],
+                        ltpl_k.lattice)
         ltpl_p = GraphLTPL(pd, device="cuda", kernels=False,
                            log_to_file=False)
         ltpl_p.graph_init()
@@ -1133,11 +1308,7 @@ def main():
     print(f"ragged shapes: admm_vel bit-equal to the plain version on "
           f"{n_admm} seeded calls (testing_tools/admm_cases)", flush=True)
 
-    sqp_kw = dict(vp_backend="sqp", sqp_m=115,
-                  sqp_step=float(oval.sampled_resolution),
-                  tire_end_idx=int(np.ceil(0.1 * 50
-                                           / float(oval.sampled_resolution))),
-                  tire_end_mps2=10.0)
+    sqp_kw = profile_stages.sqp_options(oval)
     tick_k = sc.make_batched_tick(oval, device="cuda", **sqp_kw)
     tick_p = sc.make_batched_tick(oval, device="cuda", kernels=False,
                                   **sqp_kw)
@@ -1344,7 +1515,14 @@ def main():
           f"{rep['max_d_vel_exec_mps']:.3g} m/s); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- 11. summary lines ------------------------------------------------
+    # ---- 11. fleet-tick options, stage profile, log replay ----------------
+    t_opt = time.perf_counter()
+    options_phase(oval, scen1, card, wrapper, fb_prof)
+    log_replay_phase(*oval_log, card, wrapper)
+    print(f"options, stage profile and log replay: "
+          f"{time.perf_counter() - t_opt:.1f} s", flush=True)
+
+    # ---- 12. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]

@@ -95,6 +95,19 @@ class Lattice:
     def device(self) -> torch.device:
         return self.w.device
 
+    def edge_coeffs(self, l, n, m):
+        """Hermite coefficients (..., 4, 2) of the edges (l, n) -> (l+1, m),
+        rebuilt from the nodes (raceline edges reuse the periodic raceline
+        spline segment); ``l``, ``n``, ``m`` ints or index tensors."""
+        dev = self.device
+        l, n, m = (torch.as_tensor(x, device=dev).long() for x in (l, n, m))
+        l2 = torch.remainder(l + 1, self.L)
+        her = spl.fit_hermite(self.node_pos[l, n], self.node_pos[l2, m],
+                              self.node_psi[l, n], self.node_psi[l2, m])
+        is_rl = (n == self.rl_idx[l]) & (m == self.rl_idx[l2])
+        return torch.where(is_rl[..., None, None], self.raceline_coeffs[l],
+                           her)
+
     def to(self, device=None) -> "Lattice":
         """A copy with every tensor on ``device`` (default: the card)."""
         dev = resolve_device(device)

@@ -1,5 +1,5 @@
 """Object-vs-lattice helpers (torch) — counterpart of the JAX package's
-``ops/collision.py`` (the parts the batched fleet tick uses)."""
+``ops/collision.py``, batched over leading axes."""
 
 from __future__ import annotations
 
@@ -56,3 +56,37 @@ def edge_block_mask(window_samples_xy, window_layers, obj_pos, obj_radius,
         hit = torch.amin(d2, dim=-1) <= ref2[:, o, None, None, None]
         blocked |= hit & oa[:, o, :, None, None]
     return blocked
+
+
+def closest_object(obj_layer, obj_active, start_layer, h_goal,
+                   num_layers: int):
+    """Index and forward layer distance of the closest active object within
+    the horizon (gen_local_node_template.py:191-213): ``obj_layer``,
+    ``obj_active`` (..., O); ``start_layer``, ``h_goal`` scalars or (...,).
+    Returns (idx (...,) int32, layer_dist (...,), found (...,)); ``idx`` is
+    the first object on ties and arbitrary when nothing is found."""
+    dev = obj_layer.device
+    start = torch.as_tensor(start_layer, device=dev).long()[..., None]
+    h_goal = torch.as_tensor(h_goal, device=dev).long()[..., None]
+    fwd = layer_dist_mod(start, obj_layer.long(), num_layers)
+    ok = obj_active & (fwd <= h_goal)
+    fwd_masked = torch.where(ok, fwd, num_layers + 1)
+    idx = torch.argmin(fwd_masked, dim=-1)
+    return (idx.to(torch.int32),
+            torch.gather(fwd_masked, -1, idx[..., None])[..., 0],
+            torch.any(ok, dim=-1))
+
+
+def path_hits_objects(path_xy, path_valid, obj_pos, obj_radius, obj_active,
+                      veh_width: float):
+    """Per-object flag: does the polyline ``path_xy`` (..., P, 2) (rows
+    where ``path_valid`` (..., P)) come within ``obj_radius + veh_width /
+    2`` of the object (the constant-path-segment check,
+    main_online_path_gen.py:117-122, no discretization inflation)?
+    ``obj_pos`` (..., O, 2), ``obj_radius``/``obj_active`` (..., O) ->
+    (..., O) bool."""
+    d2 = torch.sum((path_xy[..., None, :, :] - obj_pos[..., :, None, :])
+                   ** 2, dim=-1)                                # (..., O, P)
+    d2 = torch.where(path_valid[..., None, :], d2, torch.inf)
+    ref2 = (obj_radius + veh_width / 2.0) ** 2
+    return obj_active & torch.any(d2 <= ref2[..., None], dim=-1)

@@ -74,3 +74,31 @@ def get_s_coord(ref_line: torch.Tensor, pos: torch.Tensor,
     idx_a = torch.where(ang1 >= ang2, idx1, idx_nb)
     idx_b = torch.where(ang1 >= ang2, idx_nb, idx2)
     return s, (idx_a, idx_b)
+
+
+def check_inside_bounds(bound1: torch.Tensor, bound2: torch.Tensor,
+                        pos: torch.Tensor):
+    """On-track check (reference check_inside_bounds.py:27-57): the bound
+    pair interpolated around the closest centerline segment (50 steps, as
+    ``np.linspace``), and the position no farther from either bound than
+    the local track width.  ``bound1``/``bound2`` (n, 2) of a closed track,
+    ``pos`` (..., 2) -> (...,) bool."""
+    centerline = 0.5 * (bound1 + bound2)
+    s_zero = torch.zeros(centerline.shape[:-1], dtype=pos.dtype,
+                         device=pos.device)
+    _, (ia, ib) = get_s_coord(centerline, pos, s_zero, closed=True)
+    w = torch.linspace(0.0, 1.0, 50, dtype=pos.dtype,
+                       device=pos.device)[:, None]
+
+    def between(line):
+        return line[ia][..., None, :] * (1 - w) + line[ib][..., None, :] * w
+    b1, b2, cl = between(bound1), between(bound2), between(centerline)
+    k = torch.argmin(torch.sum((cl - pos[..., None, :]) ** 2, dim=-1),
+                     dim=-1)
+    pick = k[..., None, None].expand(k.shape + (1, 2))
+    b1k = torch.gather(b1, -2, pick)[..., 0, :]
+    b2k = torch.gather(b2, -2, pick)[..., 0, :]
+    d_track2 = torch.sum((b1k - b2k) ** 2, dim=-1)
+    d1 = torch.sum((b1k - pos) ** 2, dim=-1)
+    d2 = torch.sum((b2k - pos) ** 2, dim=-1)
+    return ~((d1 > d_track2) | (d2 > d_track2))

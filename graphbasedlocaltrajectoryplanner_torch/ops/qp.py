@@ -26,6 +26,7 @@ matrices is the oracle of the tests.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
 
@@ -152,15 +153,16 @@ def admm_vel_qp(d: dict, iters: int = 60, sigma: float = 1e-6,
     ua, ud = d["u_acc"], d["u_dec"]
     n = q.shape[-1]
 
-    # K = P + sigma I + A' rho A bands; P = I + w_smooth D'D
-    dd = torch.full((n,), 2.0, dtype=q.dtype, device=q.device)
-    dd[0] = 1.0
-    dd[-1] = 1.0
-    diag = (1.0 + w_smooth * dd + sigma + rho_b
-            + _pad_r(rho_a * e ** 2 + rho_d * f ** 2)
-            + _pad_l(rho_a + rho_d))
-    off = -w_smooth + rho_a * e - rho_d * f             # (..., n-1)
-    alphas, gammas, b_inv = pcr_factor(_pad_l(off), diag, _pad_r(off))
+    with record_function("gltpl.qp_factor"):
+        # K = P + sigma I + A' rho A bands; P = I + w_smooth D'D
+        dd = torch.full((n,), 2.0, dtype=q.dtype, device=q.device)
+        dd[0] = 1.0
+        dd[-1] = 1.0
+        diag = (1.0 + w_smooth * dd + sigma + rho_b
+                + _pad_r(rho_a * e ** 2 + rho_d * f ** 2)
+                + _pad_l(rho_a + rho_d))
+        off = -w_smooth + rho_a * e - rho_d * f             # (..., n-1)
+        alphas, gammas, b_inv = pcr_factor(_pad_l(off), diag, _pad_r(off))
 
     def Ax(x):
         return x, e * x[..., :-1] + x[..., 1:], f * x[..., :-1] - x[..., 1:]
@@ -171,38 +173,39 @@ def admm_vel_qp(d: dict, iters: int = 60, sigma: float = 1e-6,
     def clip(x, lo, hi):
         return torch.minimum(torch.maximum(x, lo), hi)
 
-    lo_dyn = torch.full_like(ua, -_BIG)
-    x = x0
-    z_b, z_a, z_d = Ax(x)
-    y_b = torch.zeros_like(q)
-    y_a = torch.zeros_like(e)
-    y_d = torch.zeros_like(e)
-    for _ in range(iters):
-        rhs = sigma * x - q + ATw(rho_b * z_b - y_b, rho_a * z_a - y_a,
-                                  rho_d * z_d - y_d)
-        x_t = pcr_solve(alphas, gammas, b_inv, rhs)
-        t_b, t_a, t_d = Ax(x_t)
-        x_n = alpha * x_t + (1 - alpha) * x
-        zh_b = alpha * t_b + (1 - alpha) * z_b
-        zh_a = alpha * t_a + (1 - alpha) * z_a
-        zh_d = alpha * t_d + (1 - alpha) * z_d
-        z_bn = clip(zh_b + y_b / rho_b, lb, ub)
-        z_an = clip(zh_a + y_a / rho_a, lo_dyn, ua)
-        z_dn = clip(zh_d + y_d / rho_d, lo_dyn, ud)
-        x, z_b, z_a, z_d = x_n, z_bn, z_an, z_dn
-        y_b = y_b + rho_b * (zh_b - z_bn)
-        y_a = y_a + rho_a * (zh_a - z_an)
-        y_d = y_d + rho_d * (zh_d - z_dn)
+    with record_function("gltpl.qp_iters"):
+        lo_dyn = torch.full_like(ua, -_BIG)
+        x = x0
+        z_b, z_a, z_d = Ax(x)
+        y_b = torch.zeros_like(q)
+        y_a = torch.zeros_like(e)
+        y_d = torch.zeros_like(e)
+        for _ in range(iters):
+            rhs = sigma * x - q + ATw(rho_b * z_b - y_b, rho_a * z_a - y_a,
+                                      rho_d * z_d - y_d)
+            x_t = pcr_solve(alphas, gammas, b_inv, rhs)
+            t_b, t_a, t_d = Ax(x_t)
+            x_n = alpha * x_t + (1 - alpha) * x
+            zh_b = alpha * t_b + (1 - alpha) * z_b
+            zh_a = alpha * t_a + (1 - alpha) * z_a
+            zh_d = alpha * t_d + (1 - alpha) * z_d
+            z_bn = clip(zh_b + y_b / rho_b, lb, ub)
+            z_an = clip(zh_a + y_a / rho_a, lo_dyn, ua)
+            z_dn = clip(zh_d + y_d / rho_d, lo_dyn, ud)
+            x, z_b, z_a, z_d = x_n, z_bn, z_an, z_dn
+            y_b = y_b + rho_b * (zh_b - z_bn)
+            y_a = y_a + rho_a * (zh_a - z_an)
+            y_d = y_d + rho_d * (zh_d - z_dn)
 
-    t_b, t_a, t_d = Ax(x)
-    r_prim = torch.maximum(
-        torch.amax(torch.abs(t_b - z_b), dim=-1),
-        torch.maximum(torch.amax(torch.abs(t_a - z_a), dim=-1),
-                      torch.amax(torch.abs(t_d - z_d), dim=-1)))
-    # P x with P = I + w_smooth D'D (tridiagonal)
-    px = (1.0 + w_smooth * dd) * x \
-        - w_smooth * (_pad_l(x[..., :-1]) + _pad_r(x[..., 1:]))
-    r_dual = torch.amax(torch.abs(px + q + ATw(y_b, y_a, y_d)), dim=-1)
+        t_b, t_a, t_d = Ax(x)
+        r_prim = torch.maximum(
+            torch.amax(torch.abs(t_b - z_b), dim=-1),
+            torch.maximum(torch.amax(torch.abs(t_a - z_a), dim=-1),
+                          torch.amax(torch.abs(t_d - z_d), dim=-1)))
+        # P x with P = I + w_smooth D'D (tridiagonal)
+        px = (1.0 + w_smooth * dd) * x \
+            - w_smooth * (_pad_l(x[..., :-1]) + _pad_r(x[..., 1:]))
+        r_dual = torch.amax(torch.abs(px + q + ATw(y_b, y_a, y_d)), dim=-1)
     return x, dict(r_prim=r_prim, r_dual=r_dual,
                    y=torch.cat([y_b, y_a, y_d], dim=-1))
 
@@ -348,14 +351,17 @@ def qp_vel_profile(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
         previous solution); None starts from the relaxed optimum.
     :returns: (v (..., P), residuals dict of :func:`admm_vel_qp`)
     """
-    d = _vel_qp_data(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
-                     v_start, v_end=v_end, end_idx=end_idx,
-                     drag_coeff=drag_coeff, m_veh=m_veh, pin_idx=pin_idx,
-                     v_max_scale=v_max_scale, x0_v=x0_v)
+    with record_function("gltpl.qp_setup"):
+        d = _vel_qp_data(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
+                         v_start, v_end=v_end, end_idx=end_idx,
+                         drag_coeff=drag_coeff, m_veh=m_veh, pin_idx=pin_idx,
+                         v_max_scale=v_max_scale, x0_v=x0_v)
     if kernels:
         from graphbasedlocaltrajectoryplanner_torch.ops.cuda_admm import (
             admm_vel)
-        x_n, res = admm_vel(d, iters=iters, w_smooth=w_smooth)
+        # one launch factors and iterates: gltpl.qp_factor stays empty
+        with record_function("gltpl.qp_iters"):
+            x_n, res = admm_vel(d, iters=iters, w_smooth=w_smooth)
     else:
         x_n, res = admm_vel_qp(d, iters=iters, w_smooth=w_smooth)
     x = torch.minimum(torch.clamp(x_n * d["s_x"][..., None], min=0.0),

@@ -128,3 +128,45 @@ def search_window(w_window, start_node, vg_cost, h_goal, shrink_horizon,
     nodes[..., 0] = torch.where(feasible, start, -1).to(nodes.dtype)
     return dict(nodes=nodes, h_eff=h_eff, goal_node=goal_node, cost=cost,
                 feasible=feasible)
+
+
+def dijkstra_window_np(w_window, start_node, vg_cost, h_goal):
+    """Plain-Python Dijkstra over one layered window graph ``w_window``
+    (H, N, N) with the virtual goal node at layer ``h_goal`` — the golden
+    of :func:`search_window` (igraph ``get_shortest_paths`` with the
+    virtual-goal construction).  Returns (nodes list, cost), or (None,
+    None) when no goal is reachable."""
+    import heapq
+
+    import numpy as np
+
+    H, N, _ = w_window.shape
+    INF_ = float(np.inf)
+    dist = {(0, start_node): 0.0}
+    prev = {}
+    pq = [(0.0, (0, start_node))]
+    while pq:
+        d, (h, n) = heapq.heappop(pq)
+        if d > dist.get((h, n), INF_):
+            continue
+        if h < h_goal:
+            for m in range(N):
+                w = float(w_window[h, n, m])
+                if w >= FEAS_THRESH:
+                    continue
+                nd = d + w
+                if nd < dist.get((h + 1, m), INF_):
+                    dist[(h + 1, m)] = nd
+                    prev[(h + 1, m)] = n
+                    heapq.heappush(pq, (nd, (h + 1, m)))
+    best_n, best_c = -1, INF_
+    for n in range(N):
+        c = dist.get((h_goal, n), INF_) + float(vg_cost[h_goal, n])
+        if c < best_c:
+            best_c, best_n = c, n
+    if best_n < 0 or best_c >= FEAS_THRESH:
+        return None, None
+    nodes = [best_n]
+    for h in range(h_goal, 0, -1):
+        nodes.append(prev[(h, nodes[-1])])
+    return list(reversed(nodes)), best_c

@@ -11,6 +11,7 @@ clamped or periodic boundaries) solved by a Thomas sweep.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from graphbasedlocaltrajectoryplanner_torch.ops.heading import (
@@ -208,3 +209,92 @@ def sample_uniform(coeffs, stepsize_approx: float, s_max: int,
     t_vals = torch.clamp(idx / torch.clamp(n_pts - 1, min=1), max=1.0)
     pts = eval_spline(coeffs, t_vals)
     return pts, t_vals, n_pts, length
+
+
+def sample_chain_stepnum(coeffs, stepnum, total_pts: int):
+    """Sample chains of segments with a fixed number of points per segment
+    (tph ``interp_splines(..., stepnum_fixed=...)``): ``t`` uniform in
+    [0, 1] per segment, a shared endpoint emitted once, the final endpoint
+    included; padding repeats the final point.  Batched over leading axes.
+
+    :param coeffs: (..., n_seg, 4, 2).
+    :param stepnum: (..., n_seg) int, points per segment with both ends.
+    :param total_pts: output size (>= sum(stepnum - 1) + 1).
+    :returns: (points (..., total_pts, 2), seg_idx (..., total_pts),
+        t (..., total_pts))
+    """
+    dev = coeffs.device
+    n_seg = coeffs.shape[-3]
+    stepnum = torch.as_tensor(stepnum, device=dev).long()
+    counts = torch.clamp(stepnum - 1, min=0)
+    starts = torch.cat([torch.zeros_like(counts[..., :1]),
+                        torch.cumsum(counts, dim=-1)], dim=-1)
+    n_total = starts[..., -1:] + 1                          # (..., 1)
+    idx = torch.arange(total_pts, device=dev)
+    seg_idx = torch.sum(starts[..., None, 1:] <= idx[:, None], dim=-1)
+    seg_idx = torch.clamp(seg_idx, 0, n_seg - 1)
+    within = idx - torch.gather(starts, -1, seg_idx)
+    t = within / torch.clamp(torch.gather(stepnum, -1, seg_idx) - 1, min=1)
+    last_seg = torch.clamp(torch.sum(starts[..., 1:] <= n_total - 1, dim=-1,
+                                     keepdim=True), 0, n_seg - 1)
+    end = idx >= n_total - 1
+    t = torch.where(end, 1.0, t).to(coeffs.dtype)
+    seg_idx = torch.where(end, last_seg, seg_idx)
+    c = torch.gather(coeffs, -3, seg_idx[..., None, None].expand(
+        seg_idx.shape + coeffs.shape[-2:]))
+    return eval_spline(c, t), seg_idx, t
+
+
+def dense_calc_splines_np(path: np.ndarray,
+                          el_lengths: np.ndarray = None,
+                          psi_s: float = None,
+                          psi_e: float = None):
+    """Dense NumPy construction of the reference linear system (tph
+    ``calc_splines`` layout), the golden of the spline tests.  Returns
+    (coeffs_x (n, 4), coeffs_y (n, 4))."""
+    path = np.asarray(path, float)
+    closed = np.all(np.isclose(path[0], path[-1]))
+    if el_lengths is None:
+        el_lengths = np.sqrt(np.sum(np.diff(path, axis=0) ** 2, axis=1))
+    else:
+        el_lengths = np.asarray(el_lengths, float)
+    if closed:
+        el_lengths = np.append(el_lengths, el_lengths[0])
+    scaling = el_lengths[:-1] / el_lengths[1:]
+
+    n = path.shape[0] - 1
+    M = np.zeros((4 * n, 4 * n))
+    bx = np.zeros(4 * n)
+    by = np.zeros(4 * n)
+    tmpl = np.array([[1., 0., 0., 0., 0., 0., 0., 0.],
+                     [1., 1., 1., 1., 0., 0., 0., 0.],
+                     [0., 1., 2., 3., 0., -1., 0., 0.],
+                     [0., 0., 2., 6., 0., 0., -2., 0.]])
+    for i in range(n):
+        j = 4 * i
+        if i < n - 1:
+            M[j:j + 4, j:j + 8] = tmpl
+            M[j + 2, j + 5] *= scaling[i]
+            M[j + 3, j + 6] *= scaling[i] ** 2
+        else:
+            M[j, j:j + 4] = [1., 0., 0., 0.]
+            M[j + 1, j:j + 4] = [1., 1., 1., 1.]
+        bx[j], bx[j + 1] = path[i, 0], path[i + 1, 0]
+        by[j], by[j + 1] = path[i, 1], path[i + 1, 1]
+
+    if not closed:
+        M[-2, 1] = 1.0
+        bx[-2] = np.cos(psi_s + np.pi / 2) * el_lengths[0]
+        by[-2] = np.sin(psi_s + np.pi / 2) * el_lengths[0]
+        M[-1, -4:] = [0., 1., 2., 3.]
+        bx[-1] = np.cos(psi_e + np.pi / 2) * el_lengths[-1]
+        by[-1] = np.sin(psi_e + np.pi / 2) * el_lengths[-1]
+    else:
+        M[-2, 1] = scaling[-1]
+        M[-2, -3:] = [-1., -2., -3.]
+        M[-1, 2] = 2.0 * scaling[-1] ** 2
+        M[-1, -2:] = [-2., -6.]
+
+    cx = np.linalg.solve(M, bx).reshape(n, 4)
+    cy = np.linalg.solve(M, by).reshape(n, 4)
+    return cx, cy

@@ -1,5 +1,5 @@
 """Velocity-profile recurrences (torch) — counterpart of the JAX package's
-``ops/velocity.py`` (the parts the batched fleet tick uses).
+``ops/velocity.py``.
 
 Physics (the reference's forward-backward solver semantics):
   * local gg per point ``(ax_max, ay_max)``; friction shape
@@ -164,6 +164,152 @@ def calc_vel_profile_brake_auto(kappa, el_lengths, loc_gg, v_start,
         machines, dyn_model_exp, drag_coeff, m_veh, kernels=kernels)
 
 
+def _rows(x, lead, ref):
+    """A scalar or leading-shaped argument as one value per flattened row
+    (R,) on ``ref``'s dtype and device."""
+    return torch.broadcast_to(torch.as_tensor(x, dtype=ref.dtype,
+                                              device=ref.device),
+                              lead).reshape(-1)
+
+
+def calc_vel_profile_fb(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
+                        v_start, v_end=None, dyn_model_exp: float = 1.0,
+                        drag_coeff: float = 0.85, m_veh: float = 1000.0,
+                        end_idx=None):
+    """Forward-backward velocity profile on (padded) paths (tph
+    ``calc_vel_profile(..., closed=False)``), one per row of the leading
+    axes: ``kappa``/``el_lengths`` (..., P), ``loc_gg`` (..., P, 2) local
+    ``[ax_max, ay_max]``, ``ax_max_machines`` (M, 2); ``v_max``,
+    ``v_start``, ``v_end`` and ``end_idx`` (the valid points, default all)
+    scalars or (...,).  ``el_lengths[i] = 0`` from ``end_idx - 1`` on;
+    ``v_end`` caps the last valid point and the padding.  The forward pass
+    and the backward refinement are MODE_FWD and MODE_BWD rows of
+    :func:`stacked_vel_scan`.  Returns (..., P) velocities."""
+    lead, P = kappa.shape[:-1], kappa.shape[-1]
+    kabs = torch.abs(kappa).reshape(-1, P)
+    gg = torch.broadcast_to(loc_gg, lead + (P, 2)).reshape(-1, P, 2)
+    ax, ay = gg[..., 0], gg[..., 1]
+    el = torch.broadcast_to(el_lengths, lead + (P,)).reshape(-1, P)
+    R = kabs.shape[0]
+    v0 = torch.minimum(torch.sqrt(ay / torch.clamp(kabs, min=_EPS)),
+                       _rows(v_max, lead, kabs)[:, None])
+    idx = torch.arange(P, device=kappa.device)
+    if v_end is not None:
+        end = (torch.full((R,), P, device=kappa.device) if end_idx is None
+               else torch.broadcast_to(torch.as_tensor(
+                   end_idx, device=kappa.device), lead).reshape(-1))
+        v0 = torch.where(idx >= end[:, None] - 1,
+                         torch.minimum(v0, _rows(v_end, lead, kabs)[:, None]),
+                         v0)
+    v0[:, 0] = torch.minimum(v0[:, 0], _rows(v_start, lead, kabs))
+
+    def mode(m):
+        return torch.full((R,), m, dtype=torch.int32, device=kappa.device)
+    k, a, y = kabs[:, :-1], ax[:, :-1], ay[:, :-1]
+    v_f = stacked_vel_scan(k, a, y, k, a, y, el[:, :-1], v0[:, 1:],
+                           v0[:, 0], mode(MODE_FWD), ax_max_machines,
+                           dyn_model_exp, drag_coeff, m_veh)
+    flip = lambda x: torch.flip(x, dims=[-1])               # noqa: E731
+    v_b = stacked_vel_scan(
+        flip(kabs[:, 1:]), flip(ax[:, 1:]), flip(ay[:, 1:]), flip(k),
+        flip(a), flip(y), flip(el[:, :-1]), flip(v_f[:, :-1]), v_f[:, -1],
+        mode(MODE_BWD), ax_max_machines, dyn_model_exp, drag_coeff, m_veh)
+    return flip(v_b).reshape(lead + (P,))
+
+
+def calc_vel_profile_brake(kappa, el_lengths, loc_gg, v_start,
+                           dyn_model_exp: float = 1.0,
+                           drag_coeff: float = 0.85, m_veh: float = 1000.0):
+    """Brake-to-standstill profiles (tph ``calc_vel_profile_brake``), one
+    per row of the leading axes; shapes as :func:`calc_vel_profile_fb`,
+    ``v_start`` a scalar or (...,).  Returns (..., P) velocities."""
+    lead, P = kappa.shape[:-1], kappa.shape[-1]
+    v = calc_vel_profile_brake_auto(
+        kappa.reshape(-1, P),
+        torch.broadcast_to(el_lengths, lead + (P,)).reshape(-1, P),
+        torch.broadcast_to(loc_gg, lead + (P, 2)).reshape(-1, P, 2),
+        _rows(v_start, lead, kappa), dyn_model_exp, drag_coeff, m_veh,
+        kernels=False)
+    return v.reshape(lead + (P,))
+
+
+def _associative_scan(combine, elems):
+    """Inclusive scan of the tuple of tensors ``elems`` along axis 1 with
+    an associative ``combine`` — the recursion of
+    ``jax.lax.associative_scan`` (pairs reduced, the odd prefixes scanned,
+    the even ones completed), so every element is combined in the same
+    order."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    odd = _associative_scan(combine, combine(
+        [e[:, 0:-1:2] for e in elems], [e[:, 1::2] for e in elems]))
+    if n % 2 == 0:
+        even = combine([e[:, :-1] for e in odd], [e[:, 2::2] for e in elems])
+    else:
+        even = combine(odd, [e[:, 2::2] for e in elems])
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        r = torch.empty_like(e)
+        r[:, 0::2] = torch.cat([e[:, :1], ev], dim=1)
+        r[:, 1::2] = od
+        out.append(r)
+    return out
+
+
+def stacked_vel_scan_assoc(k1, axm1, aym1, k2, axm2, aym2, ds, v_lim, v_init,
+                           mode, ax_max_machines, dyn_model_exp, drag_coeff,
+                           m_veh, sweeps: int = 6):
+    """Log-depth form of :func:`stacked_vel_scan` (same arguments, plus the
+    Picard ``sweeps``).  In energy space ``E = v^2`` every mode's step is
+    ``E_{t+1} = clip(E_t + c_t(v_t), 0, B_{t+1})`` with ``B = v_lim^2``
+    (no cap on MODE_BRAKE rows); maps ``x -> clip(x + a, lo, hi)`` compose
+    in closed form, so for fixed coefficients the chain is one associative
+    scan.  Each sweep evaluates the coefficients at the previous sweep's
+    profile; at the fixed point the result is the sequential one.
+    Returns (R, T + 1) velocities."""
+    mode = mode.long()[:, None]
+    v0 = v_init.to(k1.dtype)
+    E0 = v0 * v0
+    inf = torch.tensor(math.inf, dtype=k1.dtype, device=k1.device)
+    Bc = torch.where(torch.isfinite(v_lim), v_lim * v_lim, inf)
+    Bc = torch.where(mode == MODE_BRAKE, inf, Bc)
+    xp = ax_max_machines[:, 0].contiguous()
+    fp = ax_max_machines[:, 1].contiguous()
+
+    def coeffs(v):
+        a_t = _ax_tires(v, k1, axm1, aym1, dyn_model_exp)
+        drag = v * v * drag_coeff / m_veh
+        c_f = 2.0 * (torch.minimum(a_t, _interp(v, xp, fp)) - drag) * ds
+        dec = a_t + drag
+        c_b = -2.0 * dec * ds
+        v_est = torch.sqrt(v * v + 2.0 * dec * ds)
+        a_t2 = _ax_tires(v_est, k2, axm2, aym2, dyn_model_exp)
+        dec2 = a_t2 + v_est * v_est * drag_coeff / m_veh
+        c_r = 2.0 * torch.minimum(dec, dec2) * ds
+        return torch.where(mode == MODE_FWD, c_f,
+                           torch.where(mode == MODE_BRAKE, c_b, c_r))
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    def combine(f, g):
+        """g after f (the scan walks left to right)."""
+        af, lf, hf = f
+        ag, lg, hg = g
+        return (af + ag, clip(lf + ag, lg, hg), clip(hf + ag, lg, hg))
+
+    v = torch.where(torch.isfinite(v_lim), v_lim, v0[:, None])
+    zero = torch.zeros_like(Bc)
+    E = None
+    for _ in range(sweeps):
+        A, Lo, Hi = _associative_scan(combine, (coeffs(v), zero, Bc))
+        E = clip(E0[:, None] + A, Lo, Hi)
+        v = torch.sqrt(torch.clamp(torch.cat([E0[:, None], E[:, :-1]],
+                                             dim=1), min=0.0))
+    return torch.cat([E0[:, None], E], dim=1) ** 0.5
+
+
 def calc_ax_profile(vx_profile, el_lengths):
     """Acceleration of a velocity profile along the last axis:
     ``(v_{i+1}^2 - v_i^2) / (2 ds_i)``, zero where ``ds == 0``.
@@ -217,3 +363,85 @@ def stop_distance(v_brake, el_lengths, v_thresh: float = 0.1):
     n = el_lengths.shape[-1]
     return torch.sum(torch.where(v_brake[..., :n] > v_thresh, el_lengths,
                                  0.0), dim=-1)
+
+
+def calc_vel_profile_follow(kappa, el_lengths, loc_gg, ax_max_machines,
+                            v_start, v_ego, v_obj, v_max, safety_d,
+                            veh_length, obj_dist, opp_stop_dist, opp_vel_at,
+                            control_params: dict, control_type: str = "PD",
+                            dyn_model_exp: float = 1.0,
+                            drag_coeff: float = 0.85, m_veh: float = 1000.0):
+    """Follow-mode velocity profile (reference calc_vel_profile_follow),
+    one per row of the leading axes: shapes as :func:`calc_vel_profile_fb`,
+    every scalar argument a scalar or (...,).  The opponent's run-out on
+    the global raceline comes summarized as ``opp_stop_dist`` and
+    ``opp_vel_at`` (``planner/velplan.opponent_summary``).
+
+    :returns: (vx (..., P), too_close, vel_bound_ok, v_control (...,),
+        control_d)
+    """
+    lead, P = kappa.shape[:-1], kappa.shape[-1]
+    kappa = kappa.reshape(-1, P)
+    el = torch.broadcast_to(el_lengths, lead + (P,)).reshape(-1, P)
+    gg = torch.broadcast_to(loc_gg, lead + (P, 2)).reshape(-1, P, 2)
+    R = kappa.shape[0]
+    rows = torch.arange(R, device=kappa.device)
+    [v_start, v_ego, v_obj, v_max, safety_d, veh_length, obj_dist,
+     opp_stop_dist, opp_vel_at] = [
+        _rows(x, lead, kappa) for x in (v_start, v_ego, v_obj, v_max,
+                                        safety_d, veh_length, obj_dist,
+                                        opp_stop_dist, opp_vel_at)]
+    phys = dict(dyn_model_exp=dyn_model_exp, drag_coeff=drag_coeff,
+                m_veh=m_veh)
+    control_d = control_params["c_p"] * safety_d + veh_length
+    safety_total = safety_d + veh_length
+    too_close = (obj_dist - safety_total) < 0.0
+
+    # ego braking profile and stopping distance on the local path
+    v_ego_brake = calc_vel_profile_brake(kappa, el, gg, v_start, **phys)
+    ego_stop_d = stop_distance(v_ego_brake, el)
+    s = torch.cat([torch.zeros_like(el[:, :1]),
+                   torch.cumsum(el[:, :-1], dim=-1)], dim=-1)
+    s_stop = obj_dist - safety_total + opp_stop_dist
+    stop_idx = torch.clamp(torch.sum(s < s_stop[:, None], dim=-1), 0, P - 1)
+    v_end = torch.where(s_stop > s[:, -1], opp_vel_at, 0.0)
+    v_control = torch.minimum(torch.clamp(follow_control_vel(
+        control_params, obj_dist, control_d, v_obj, v_ego, control_type),
+        min=0.0), v_max)
+
+    # segment 1: decelerate to the control velocity if faster
+    seg1_active = (v_start > v_control) & (stop_idx >= 2)
+    below = v_ego_brake <= v_control[:, None]
+    idx_c_raw = torch.argmax(below.to(torch.int32), dim=-1)
+    idx_c_raw = torch.where(below[rows, idx_c_raw], idx_c_raw, stop_idx)
+    idx_c = torch.where(seg1_active, torch.minimum(
+        torch.where(idx_c_raw == 0, stop_idx, idx_c_raw), stop_idx), 0)
+    vx_control_start = torch.where(seg1_active, v_ego_brake[rows, idx_c],
+                                   v_start)
+
+    # segment 2: the fb profile capped at v_control up to stop_idx
+    idxs = torch.arange(P, device=kappa.device)
+    el_seg2 = torch.where(idxs < stop_idx[:, None], el, 0.0)
+    el_seg2 = torch.where(idxs < idx_c[:, None], 0.0, el_seg2)
+    v_seg2 = calc_vel_profile_fb(kappa, el_seg2, gg, ax_max_machines,
+                                 v_control,
+                                 torch.minimum(vx_control_start, v_control),
+                                 v_end=v_end, end_idx=stop_idx + 1, **phys)
+    vel_bound_ok = torch.abs(v_seg2[rows, idx_c] - vx_control_start) <= 1.0
+    vel_bound_ok &= ~((~seg1_active) & (stop_idx < 2))
+    vx = torch.where(idxs < idx_c[:, None], v_ego_brake, v_seg2)
+    vx = torch.where(idxs > stop_idx[:, None], 0.0, vx)
+    vel_bound_ok &= torch.abs(vx[:, 0] - v_start) <= 1.0
+
+    # when the ego cannot stop in the distance anyway: plain ego brake
+    cannot_hold = ego_stop_d >= s_stop
+    vx = torch.where(cannot_hold[:, None], v_ego_brake, vx)
+    vel_bound_ok = torch.where(cannot_hold, True, vel_bound_ok)
+
+    # intersect with the unconstrained profile
+    vx_compl = calc_vel_profile_fb(kappa, el, gg, ax_max_machines, v_max,
+                                   v_start, **phys)
+    vx = torch.minimum(vx, vx_compl)
+    return (vx.reshape(lead + (P,)), too_close.reshape(lead),
+            vel_bound_ok.reshape(lead), v_control.reshape(lead),
+            control_d.reshape(lead))

@@ -18,6 +18,7 @@ import math
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from graphbasedlocaltrajectoryplanner_torch import resolve_device
 from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
@@ -236,42 +237,76 @@ def _batched_window(lat: Lattice, scen: Scenario, zone_block,
                     w_last_factors, kernels: bool = True):
     """Obstacle selection, slab hit masks, the window DP and the per-slot
     virtual-goal vectors for the whole batch."""
-    obs = _select_obstacle(lat, scen)
-    window = pg.plan_window_kernel(
-        lat, scen.start_layer, scen.start_node, zone_block, scen.obj_pos,
-        scen.obj_radius, scen.obj_active, obs["obs_layer"], obs["obs_node"],
-        obs["obs_found"], scen.last_nodes, w_last_factors, kernels=kernels)
+    with record_function("gltpl.object_selection"):
+        obs = _select_obstacle(lat, scen)
+    with record_function("gltpl.plan_window"):
+        window = pg.plan_window_kernel(
+            lat, scen.start_layer, scen.start_node, zone_block, scen.obj_pos,
+            scen.obj_radius, scen.obj_active, obs["obs_layer"],
+            obs["obs_node"], obs["obs_found"], scen.last_nodes,
+            w_last_factors, kernels=kernels)
     return obs, window
 
 
-def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
-                  packed: torch.Tensor,
+def default_p_max(lat: Lattice) -> int:
+    """Path rows for H_max edges of S samples, padded to a multiple of 64."""
+    return int(np.ceil((lat.H_max * (lat.S - 1) + 1) / 64.0) * 64)
+
+
+def scenario_tick(lat: Lattice, scen: Scenario,
                   vel_max: float = 70.0,
                   gg_lim=(10.0, 10.0),
                   safety_d: float = 30.0,
                   machines=None,
+                  p_max: int = None,
                   dyn_model_exp: float = 1.0,
                   drag_coeff: float = 0.85,
                   m_veh: float = 1000.0,
-                  kernels: bool = True,
+                  zone_block=None,
+                  w_last_factors=None,
+                  incl_emergency: bool = True,
+                  precomputed: dict = None,
+                  until: str = None,
                   vp_backend: str = "fb",
+                  filt_window: int = 1,
                   sqp_x0: torch.Tensor = None,
                   tire_end_idx: int = 0,
                   tire_end_mps2: float = 5.0,
                   sqp_m: int = None,
-                  sqp_step: float = 2.5):
-    """One full action-set replan per scenario of the batch, from the
-    obstacle selection ``obs`` and window DP ``out`` of
-    :func:`_batched_window` on: the action-set decision tree, backtrace,
+                  sqp_step: float = 2.5,
+                  kernels: bool = True,
+                  packed: torch.Tensor = None):
+    """One full action-set replan per scenario of the batch: obstacle
+    selection and the window DP, the action-set decision tree, backtrace,
     assembly, const-path splice, the velocity stage and the emergency
-    profile.
+    profile.  Options as the JAX package's ``scenario_tick``.
 
+    :param zone_block: ``(L, N)`` shared or ``(B, L, N)`` per-scenario zone
+        mask (default none); ``w_last_factors`` the previous-solution
+        discount (default the reference's ``[0, 0.5, 0.8]``).
+    :param precomputed: ``dict(obs=..., window=...)``, the obstacle
+        selection and window DP of :func:`_batched_window`; None computes
+        them here.
+    :param p_max: path rows per action (default :func:`default_p_max`);
+        every output of length ``C_PAD + p_max`` follows it.
+    :param incl_emergency: append the emergency slot (False: 4 slots, no
+        emergency profile).
+    :param until: staging cutoff of the stage profiler
+        (``parallel/profiling.py``): ``"decide"`` returns ``dict(src,
+        h_eff, valid)`` (B, 4) right after the decision tree,
+        ``"assembly"`` returns ``dict(paths, n_valid, cost, h_eff,
+        valid)`` right after the const-path splice; None runs the full
+        tick.
     :param vp_backend: the velocity backend, ``"fb"`` or ``"sqp"`` (the
         reference's ``vp_type``; ``velplan.velocity_stage_scenario``).
+    :param filt_window: odd moving-average window of the fb velocity
+        smoothing (ignored under ``sqp``, as in the reference).
     :param sqp_x0: (B, 4, C_PAD + p_max) SQP warm-start profiles (None:
         the reference's cold 20 m/s fill); ``tire_end_idx``,
         ``tire_end_mps2``, ``sqp_m`` (the export points) and ``sqp_step``
         (the spline step) are the SQP planner's window parameters.
+    :param packed: :func:`pathgen.packed_edge_table` of ``lat`` (built here
+        when None).
 
     Output slots: [straight, follow, left, right, emergency].  Returns
     dict(trajs (B, 5, C_PAD + p_max, 7), valid (B, 5), cost (B, 5),
@@ -284,8 +319,21 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
     if machines is None:
         machines = torch.tensor([[0.0, 5.0], [100.0, 5.0]],
                                 dtype=torch.float32, device=dev)
-    # path rows for H_max edges of S samples, padded to a multiple of 64
-    p_max = int(np.ceil((lat.H_max * (lat.S - 1) + 1) / 64.0) * 64)
+    if p_max is None:
+        p_max = default_p_max(lat)
+    if precomputed is None:
+        if zone_block is None:
+            zone_block = torch.zeros((lat.L, lat.N), dtype=torch.bool,
+                                     device=dev)
+        if w_last_factors is None:
+            w_last_factors = torch.tensor([0.0, 0.5, 0.8],
+                                          dtype=torch.float32, device=dev)
+        obs, out = _batched_window(lat, scen, zone_block, w_last_factors,
+                                   kernels=kernels)
+    else:
+        obs, out = precomputed["obs"], precomputed["window"]
+    if packed is None:
+        packed = pg.packed_edge_table(lat)
     L, N, H = lat.L, lat.N, lat.H_max
     B = scen.start_layer.shape[0]
     rows = torch.arange(B, device=dev)
@@ -295,39 +343,41 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
     h_goal = out["h_goal"].long()
 
     # ---- object vs constant path segment -----------------------------------
-    # const_path is the exclusive prefix; the reference's ">= 2 rows" check
-    # is const_n >= 1 here
-    have_const = scen.const_n >= 1
-    s_start, _ = proj.get_s_coord(lat.raceline, scen.pos_est, lat.s_rl,
-                                  closed=True)
-    start_pos = lat.node_pos[start_layer, start_node]               # (B, 2)
-    s_end, _ = proj.get_s_coord(lat.raceline, start_pos, lat.s_rl,
-                                closed=True)
-    s_objs, _ = proj.get_s_coord(lat.raceline, scen.obj_pos, lat.s_rl,
-                                 closed=True)                       # (B, O)
-    s_start_, s_end_ = s_start[:, None], s_end[:, None]
-    in_seg = torch.where(s_start_ <= s_end_,
-                         (s_objs >= s_start_) & (s_objs <= s_end_),
-                         (s_objs > s_start_) | (s_objs < s_end_))
-    in_seg = in_seg & vehicle_slots(scen.obj_active, scen.obj_owner) \
-        & have_const[:, None]
-    obj_besides = torch.any(in_seg, dim=1)
-    cvalid = torch.arange(C_PAD, device=dev)[None, :] \
-        < scen.const_n.long()[:, None]                              # (B, C)
-    d2 = torch.sum((scen.const_path[:, None, :, 0:2]
-                    - scen.obj_pos[:, :, None, :]) ** 2, dim=-1)   # (B, O, C)
-    ref2c = (scen.obj_radius + lat.veh_width / 2.0) ** 2
-    d2s = torch.sum((start_pos[:, None, :] - scen.obj_pos) ** 2, dim=-1)
-    hit_const = torch.any((d2 <= ref2c[..., None]) & cvalid[:, None, :],
-                          dim=2) | (d2s <= ref2c)
-    obj_in_const = torch.any(in_seg & hit_const, dim=1)
-    track_len = lat.s_rl[-1]
-    obj_dist_c = torch.where(s_objs < s_start_,
-                             s_objs + track_len - s_start_,
-                             s_objs - s_start_)
-    obj_dist_c = torch.where(in_seg, obj_dist_c, math.inf)
-    c_idx = torch.argmin(obj_dist_c, dim=1)
-    follow_obj_idx = torch.where(obj_besides, c_idx, obs_idx)
+    with record_function("gltpl.const_path_objects"):
+        # const_path is the exclusive prefix; the reference's ">= 2 rows" check
+        # is const_n >= 1 here
+        have_const = scen.const_n >= 1
+        s_start, _ = proj.get_s_coord(lat.raceline, scen.pos_est, lat.s_rl,
+                                      closed=True)
+        start_pos = lat.node_pos[start_layer, start_node]           # (B, 2)
+        s_end, _ = proj.get_s_coord(lat.raceline, start_pos, lat.s_rl,
+                                    closed=True)
+        s_objs, _ = proj.get_s_coord(lat.raceline, scen.obj_pos, lat.s_rl,
+                                     closed=True)                   # (B, O)
+        s_start_, s_end_ = s_start[:, None], s_end[:, None]
+        in_seg = torch.where(s_start_ <= s_end_,
+                             (s_objs >= s_start_) & (s_objs <= s_end_),
+                             (s_objs > s_start_) | (s_objs < s_end_))
+        in_seg = in_seg & vehicle_slots(scen.obj_active, scen.obj_owner) \
+            & have_const[:, None]
+        obj_besides = torch.any(in_seg, dim=1)
+        cvalid = torch.arange(C_PAD, device=dev)[None, :] \
+            < scen.const_n.long()[:, None]                          # (B, C)
+        d2 = torch.sum((scen.const_path[:, None, :, 0:2]
+                        - scen.obj_pos[:, :, None, :]) ** 2,
+                       dim=-1)                                      # (B,O,C)
+        ref2c = (scen.obj_radius + lat.veh_width / 2.0) ** 2
+        d2s = torch.sum((start_pos[:, None, :] - scen.obj_pos) ** 2, dim=-1)
+        hit_const = torch.any((d2 <= ref2c[..., None]) & cvalid[:, None, :],
+                              dim=2) | (d2s <= ref2c)
+        obj_in_const = torch.any(in_seg & hit_const, dim=1)
+        track_len = lat.s_rl[-1]
+        obj_dist_c = torch.where(s_objs < s_start_,
+                                 s_objs + track_len - s_start_,
+                                 s_objs - s_start_)
+        obj_dist_c = torch.where(in_seg, obj_dist_c, math.inf)
+        c_idx = torch.argmin(obj_dist_c, dim=1)
+        follow_obj_idx = torch.where(obj_besides, c_idx, obs_idx)
 
     # ---- action-set decision tree ------------------------------------------
     case_a = obj_in_const | obj_besides
@@ -392,63 +442,78 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
     valid4 = torch.stack([v_straight, v_follow, v_left, v_right], dim=1)
     h_safe = torch.clamp(h4, min=1)
 
-    # ---- backtrace + assembly per output slot ------------------------------
-    r4 = rows[:, None]
-    goal_tot = out["best"][r4, src4, h_safe] + out["vg"][r4, src4, h_safe]
-    goal_node = torch.argmin(goal_tot, dim=-1)                      # (B, 4)
-    cost_all = torch.gather(goal_tot, 2, goal_node[..., None])[..., 0]
-    # output slot j of scenario b walks the DP's table of slot src4[b, j],
-    # which is one of the four slot constants
-    walk = (cuda_backtrace.backtrace_walk if kernels
-            else cuda_backtrace.backtrace_walk_plain)
-    slots = (pg.SLOT_STRAIGHT, pg.SLOT_FOLLOW, pg.SLOT_LEFT, pg.SLOT_RIGHT)
-    nodes4 = walk(out["bp"], goal_node.reshape(B * 4), h_safe.reshape(B * 4),
-                  src4.reshape(B * 4), slot_range=(min(slots), max(slots))
-                  ).reshape(B, 4, H + 1).long()
-    end_nodes = torch.gather(nodes4, 2, h_safe[..., None])[..., 0]
+    if until == "decide":
+        return dict(src=src4.to(torch.int32), h_eff=h4.to(torch.int32),
+                    valid=valid4)
 
-    # start heading: the previous path's heading at the start node when a
-    # const segment exists, else the first edge's stored heading (raceline
-    # edges reuse the periodic raceline spline)
-    rl = lat.rl_idx.long()
-    is_rl = (start_node == rl[start_layer])[:, None] \
-        & (nodes4[:, :, 1] == rl[torch.remainder(start_layer + 1, L)][:, None])
-    d_rl = lat.raceline_coeffs[start_layer, 1]                      # (B, 2)
-    psi_rl = torch.atan2(d_rl[:, 1], d_rl[:, 0]) - math.pi / 2.0
-    psi_cold = torch.where(is_rl, psi_rl[:, None],
-                           lat.node_psi[start_layer, start_node][:, None])
-    psi_s = torch.where(scen.warm[:, None], scen.psi_start[:, None], psi_cold)
-    res_all = pg.assemble_action_kernel(
-        lat, packed, out["win_layers"].repeat_interleave(4, dim=0),
-        nodes4.reshape(B * 4, H + 1), h_safe.reshape(B * 4),
-        psi_s.reshape(B * 4), p_max=p_max)
-    path4 = res_all["path"].reshape(B, 4, p_max, 5)
-    n_valid4 = res_all["n_valid"].reshape(B, 4)
+    # ---- backtrace + assembly per output slot ------------------------------
+    with record_function("gltpl.backtrace"):
+        r4 = rows[:, None]
+        goal_tot = out["best"][r4, src4, h_safe] + out["vg"][r4, src4, h_safe]
+        goal_node = torch.argmin(goal_tot, dim=-1)                  # (B, 4)
+        cost_all = torch.gather(goal_tot, 2, goal_node[..., None])[..., 0]
+        # output slot j of scenario b walks the DP's table of slot src4[b, j],
+        # which is one of the four slot constants
+        walk = (cuda_backtrace.backtrace_walk if kernels
+                else cuda_backtrace.backtrace_walk_plain)
+        slots = (pg.SLOT_STRAIGHT, pg.SLOT_FOLLOW, pg.SLOT_LEFT, pg.SLOT_RIGHT)
+        nodes4 = walk(out["bp"], goal_node.reshape(B * 4),
+                      h_safe.reshape(B * 4), src4.reshape(B * 4),
+                      slot_range=(min(slots), max(slots))
+                      ).reshape(B, 4, H + 1).long()
+        end_nodes = torch.gather(nodes4, 2, h_safe[..., None])[..., 0]
+
+    with record_function("gltpl.assemble"):
+        # start heading: the previous path's heading at the start node when a
+        # const segment exists, else the first edge's stored heading (raceline
+        # edges reuse the periodic raceline spline)
+        rl = lat.rl_idx.long()
+        is_rl = (start_node == rl[start_layer])[:, None] \
+            & (nodes4[:, :, 1]
+               == rl[torch.remainder(start_layer + 1, L)][:, None])
+        d_rl = lat.raceline_coeffs[start_layer, 1]                  # (B, 2)
+        psi_rl = torch.atan2(d_rl[:, 1], d_rl[:, 0]) - math.pi / 2.0
+        psi_cold = torch.where(is_rl, psi_rl[:, None],
+                               lat.node_psi[start_layer, start_node][:, None])
+        psi_s = torch.where(scen.warm[:, None], scen.psi_start[:, None],
+                            psi_cold)
+        res_all = pg.assemble_action_kernel(
+            lat, packed, out["win_layers"].repeat_interleave(4, dim=0),
+            nodes4.reshape(B * 4, H + 1), h_safe.reshape(B * 4),
+            psi_s.reshape(B * 4), p_max=p_max)
+        path4 = res_all["path"].reshape(B, 4, p_max, 5)
+        n_valid4 = res_all["n_valid"].reshape(B, 4)
 
     # ---- constant-path splice ----------------------------------------------
-    # exported row i = spliced[cut_idx + i]: the remaining const rows then
-    # the freshly planned path
-    P_full = C_PAD + p_max
-    idxf = torch.arange(P_full, device=dev)
-    cn = (scen.const_n - scen.cut_idx).long()                       # (B,)
-    const_up = dynshift.shift_rows_up(scen.const_path, scen.cut_idx, C_PAD)
-    const_rows = torch.cat([const_up, torch.zeros(
-        (B, P_full - C_PAD, 5), dtype=const_up.dtype, device=dev)], dim=1)
-    new_ext = torch.cat([path4, torch.zeros(
-        (B, 4, P_full - p_max, 5), dtype=path4.dtype, device=dev)], dim=2)
-    new_rows = dynshift.shift_rows_down(new_ext, cn[:, None], C_PAD)
-    paths_full = torch.where((idxf[None, :] < cn[:, None])[:, None, :, None],
-                             const_rows[:, None], new_rows)
-    n_valid_full = n_valid4 + cn[:, None]
-    # rows beyond the spliced length freeze at the last real row, with zero
-    # element length from the last real row on
-    last_i = torch.clamp(n_valid_full - 1, 0, P_full - 1)
-    last_row = torch.gather(paths_full, 2,
-                            last_i[..., None, None].expand(B, 4, 1, 5))
-    paths_full = torch.where(
-        (idxf >= n_valid_full[..., None])[..., None], last_row, paths_full)
-    paths_full[..., 4] = torch.where(idxf >= n_valid_full[..., None] - 1,
-                                     0.0, paths_full[..., 4])
+    with record_function("gltpl.const_splice"):
+        # exported row i = spliced[cut_idx + i]: the remaining const rows then
+        # the freshly planned path
+        P_full = C_PAD + p_max
+        idxf = torch.arange(P_full, device=dev)
+        cn = (scen.const_n - scen.cut_idx).long()                       # (B,)
+        const_up = dynshift.shift_rows_up(scen.const_path, scen.cut_idx, C_PAD)
+        const_rows = torch.cat([const_up, torch.zeros(
+            (B, P_full - C_PAD, 5), dtype=const_up.dtype, device=dev)], dim=1)
+        new_ext = torch.cat([path4, torch.zeros(
+            (B, 4, P_full - p_max, 5), dtype=path4.dtype, device=dev)], dim=2)
+        new_rows = dynshift.shift_rows_down(new_ext, cn[:, None], C_PAD)
+        paths_full = torch.where(
+            (idxf[None, :] < cn[:, None])[:, None, :, None],
+            const_rows[:, None], new_rows)
+        n_valid_full = n_valid4 + cn[:, None]
+        # rows beyond the spliced length freeze at the last real row, with zero
+        # element length from the last real row on
+        last_i = torch.clamp(n_valid_full - 1, 0, P_full - 1)
+        last_row = torch.gather(paths_full, 2,
+                                last_i[..., None, None].expand(B, 4, 1, 5))
+        paths_full = torch.where(
+            (idxf >= n_valid_full[..., None])[..., None], last_row, paths_full)
+        paths_full[..., 4] = torch.where(idxf >= n_valid_full[..., None] - 1,
+                                         0.0, paths_full[..., 4])
+
+    if until == "assembly":
+        return dict(paths=paths_full, n_valid=n_valid_full.to(torch.int32),
+                    cost=cost_all, h_eff=h4.to(torch.int32), valid=valid4)
 
     # ---- velocity stage over the spliced paths -----------------------------
     gg = torch.tensor(gg_lim, dtype=torch.float32, device=dev).expand(
@@ -462,49 +527,60 @@ def scenario_tick(lat: Lattice, scen: Scenario, obs: dict, out: dict,
         lat.glob_rl, lat.glob_el, c_obj_pos, c_obj_vel, dyn_model_exp,
         drag_coeff, m_veh, kernels=kernels)
 
-    # raceline end velocity per slot, reduced by the end node's lateral
-    # displacement from the raceline
-    end_layers = torch.gather(out["win_layers"].long(), 1, h_safe)  # (B, 4)
-    v_rl = lat.vel_rl[end_layers]
-    rl_end = rl[end_layers]
-    rl_off = torch.abs(end_nodes - rl_end).to(torch.float32) * lat.lat_offset
-    v_end_rl4 = v_rl - torch.minimum(v_rl * lat.vel_decrease_lat * rl_off,
-                                     v_rl)
-    open_goal_end = (not lat.closed) & goal_end
-    red4 = (h4 != h_goal[:, None]) | open_goal_end[:, None]
-    # object distance along the follow slot's spliced path relative to the
-    # ego projection (leading-zero s array)
-    path_f = paths_full[:, pg.SLOT_FOLLOW]                          # (B,P,5)
-    s_arr_f = vp._cumsum0(path_f[..., 4])
-    s_obj, _ = proj.get_s_coord(path_f[..., 0:2], c_obj_pos, s_arr_f)
-    s_ego, _ = proj.get_s_coord(path_f[..., 0:2], scen.pos_cut, s_arr_f)
-    obj_dist = torch.where(follow_target, s_obj - s_ego, 0.0)
-    vc_full = torch.zeros((B, P_full), dtype=torch.float32, device=dev)
-    vc_full[:, :C_PAD] = scen.vel_course
-    o = vp.velocity_stage_scenario(
-        paths_full, n_valid_full, gg, vc_full, scen.c_len, scen.vel_plan,
-        scen.vel_est, f32(vel_max), machines, f32(0.1), v_end_rl4, red4,
-        obj_dist, c_obj_vel, f32(safety_d), opp_stop_dist, roll_vel,
-        roll_cum, f32(lat.veh_length), f32(1.25), f32(0.025), f32(0.2),
-        f32(15.0), dyn_model_exp, drag_coeff, m_veh,
-        (float(gg_lim[0]), float(gg_lim[1])), follow_slot=pg.SLOT_FOLLOW,
-        kernels=kernels, vp_backend=vp_backend, sqp_x0=sqp_x0,
-        veh_turn=f32(lat.veh_turn), tire_end_idx=tire_end_idx,
-        tire_end_mps2=f32(tire_end_mps2), sqp_m=sqp_m, sqp_step=sqp_step)
-    trajs4 = o["trajs"]
-    # broken velocity constraints remove overtake actions; follow and
-    # straight are always retained
-    valid4 = valid4 & (o["vel_bound"] | (torch.arange(4, device=dev) < 2))
+    with record_function("gltpl.velocity"):
+        # raceline end velocity per slot, reduced by the end node's lateral
+        # displacement from the raceline
+        end_layers = torch.gather(out["win_layers"].long(), 1,
+                                  h_safe)                           # (B, 4)
+        v_rl = lat.vel_rl[end_layers]
+        rl_end = rl[end_layers]
+        rl_off = torch.abs(end_nodes - rl_end).to(torch.float32) \
+            * lat.lat_offset
+        v_end_rl4 = v_rl - torch.minimum(v_rl * lat.vel_decrease_lat * rl_off,
+                                         v_rl)
+        open_goal_end = (not lat.closed) & goal_end
+        red4 = (h4 != h_goal[:, None]) | open_goal_end[:, None]
+        # object distance along the follow slot's spliced path relative to the
+        # ego projection (leading-zero s array)
+        path_f = paths_full[:, pg.SLOT_FOLLOW]                      # (B,P,5)
+        s_arr_f = vp._cumsum0(path_f[..., 4])
+        s_obj, _ = proj.get_s_coord(path_f[..., 0:2], c_obj_pos, s_arr_f)
+        s_ego, _ = proj.get_s_coord(path_f[..., 0:2], scen.pos_cut, s_arr_f)
+        obj_dist = torch.where(follow_target, s_obj - s_ego, 0.0)
+        vc_full = torch.zeros((B, P_full), dtype=torch.float32, device=dev)
+        vc_full[:, :C_PAD] = scen.vel_course
+        o = vp.velocity_stage_scenario(
+            paths_full, n_valid_full, gg, vc_full, scen.c_len, scen.vel_plan,
+            scen.vel_est, f32(vel_max), machines, f32(0.1), v_end_rl4, red4,
+            obj_dist, c_obj_vel, f32(safety_d), opp_stop_dist, roll_vel,
+            roll_cum, f32(lat.veh_length), f32(1.25), f32(0.025), f32(0.2),
+            f32(15.0), dyn_model_exp, drag_coeff, m_veh,
+            (float(gg_lim[0]), float(gg_lim[1])), follow_slot=pg.SLOT_FOLLOW,
+            kernels=kernels, vp_backend=vp_backend, sqp_x0=sqp_x0,
+            veh_turn=f32(lat.veh_turn), tire_end_idx=tire_end_idx,
+            tire_end_mps2=f32(tire_end_mps2), sqp_m=sqp_m, sqp_step=sqp_step,
+        filt_window=filt_window)
+        trajs4 = o["trajs"]
+        # broken velocity constraints remove overtake actions; follow and
+        # straight are always retained
+        valid4 = valid4 & (o["vel_bound"] | (torch.arange(4, device=dev) < 2))
 
     # ---- emergency-brake trajectory on the base action ---------------------
     em_base = torch.where(case_c | relabel, 0, 1).to(torch.int32)
-    eb = em_base.long()
-    traj_em = vp.emergency_kernel(trajs4[rows, eb], gg, kernels=kernels)
-    trajs = torch.cat([trajs4, traj_em[:, None]], dim=1)
-    valid = torch.cat([valid4, valid4[rows, eb][:, None]], dim=1)
-    cost5 = torch.cat([cost_all, cost_all[rows, eb][:, None]], dim=1)
-    h5 = torch.cat([h4, h4[rows, eb][:, None]], dim=1)
-    nv5 = torch.cat([n_valid_full, n_valid_full[rows, eb][:, None]], dim=1)
+    if incl_emergency:
+        eb = em_base.long()
+        with record_function("gltpl.emergency"):
+            traj_em = vp.emergency_kernel(trajs4[rows, eb], gg,
+                                          kernels=kernels)
+        trajs = torch.cat([trajs4, traj_em[:, None]], dim=1)
+        valid = torch.cat([valid4, valid4[rows, eb][:, None]], dim=1)
+        cost5 = torch.cat([cost_all, cost_all[rows, eb][:, None]], dim=1)
+        h5 = torch.cat([h4, h4[rows, eb][:, None]], dim=1)
+        nv5 = torch.cat([n_valid_full, n_valid_full[rows, eb][:, None]],
+                        dim=1)
+    else:
+        trajs, valid, cost5, h5, nv5 = (trajs4, valid4, cost_all, h4,
+                                        n_valid_full)
     res = dict(trajs=trajs, valid=valid, cost=cost5,
                h_eff=h5.to(torch.int32), n_valid=nv5.to(torch.int32),
                case_a=case_a, relabel=relabel, em_base=em_base)
@@ -526,8 +602,9 @@ def make_batched_tick(lat: Lattice, device=None, zone_block=None,
 
     :param zone_block: ``(L, N)`` shared zone mask or ``(B, L, N)`` per
         scenario (default: no zones).
-    :param kw: options of :func:`scenario_tick` (``vp_backend="sqp"`` and
-        the SQP window parameters among them); ``tick(scen, **over)``
+    :param kw: options of :func:`scenario_tick` (``p_max``,
+        ``incl_emergency``, ``until``, ``filt_window``, ``vp_backend="sqp"``
+        and the SQP window parameters among them); ``tick(scen, **over)``
         overrides them for one call, e.g. the warm start ``sqp_x0``.
     """
     dev = resolve_device(device)
@@ -547,9 +624,8 @@ def make_batched_tick(lat: Lattice, device=None, zone_block=None,
     def tick(scen: Scenario, **over):
         if scen.start_layer.device != dev:
             scen = scen.to(dev)
-        obs, window = _batched_window(lat, scen, zone_block, w_last_factors,
-                                      kernels=kernels)
-        return scenario_tick(lat, scen, obs, window, packed, kernels=kernels,
-                             **{**kw, **over})
+        return scenario_tick(lat, scen, zone_block=zone_block,
+                             w_last_factors=w_last_factors, kernels=kernels,
+                             packed=packed, **{**kw, **over})
 
     return tick

@@ -15,6 +15,7 @@ tensors; ``kernels=False`` takes the plain versions on any device.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
 from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
@@ -98,7 +99,8 @@ def plan_window_kernel(lat: Lattice, start_layer, start_node, zone_block,
                        obs_found, last_nodes, w_last_factors,
                        kernels: bool = True):
     """Masked 4-slot DP for a batch of scenarios: the slab hit masks and
-    the window DP (kernels 1 and 2 on the card), then the virtual-goal
+    the window DP (kernels 1 and 2 on the card, in the profiler ranges
+    ``gltpl.hit_slab`` and ``gltpl.window_dp``), then the virtual-goal
     vectors.
 
     :returns: dict with ``best``/``bp``/``vg`` (B, 4, H+1, N),
@@ -106,15 +108,17 @@ def plan_window_kernel(lat: Lattice, start_layer, start_node, zone_block,
     """
     pre = window_meta(lat, start_layer, obj_pos, obj_radius, obj_active,
                       obs_layer, obs_node, obs_found)
-    hit = (cuda_collision.hit_slab if kernels
-           else cuda_collision.hit_slab_plain)(
-        lat.samples_xy, pre["slab_layers"], obj_pos, pre["ref2"],
-        pre["obj_app"])
-    best, bp = (cuda_window.fused_window_dp if kernels
-                else cuda_window.fused_window_dp_plain)(
-        lat.w, zone_block, start_layer, start_node, pre["slab_layers"], hit,
-        pre["p_obs"], pre["in_win"], obs_node, last_nodes, w_last_factors,
-        closed=bool(lat.closed), h_max=int(lat.H_max))
+    with record_function("gltpl.hit_slab"):
+        hit = (cuda_collision.hit_slab if kernels
+               else cuda_collision.hit_slab_plain)(
+            lat.samples_xy, pre["slab_layers"], obj_pos, pre["ref2"],
+            pre["obj_app"])
+    with record_function("gltpl.window_dp"):
+        best, bp = (cuda_window.fused_window_dp if kernels
+                    else cuda_window.fused_window_dp_plain)(
+            lat.w, zone_block, start_layer, start_node, pre["slab_layers"],
+            hit, pre["p_obs"], pre["in_win"], obs_node, last_nodes,
+            w_last_factors, closed=bool(lat.closed), h_max=int(lat.H_max))
     vg = window_vg(lat, pre["win_layers"], zone_block, pre["p_obs"],
                    pre["in_win"], obs_node)
     return dict(best=best, bp=bp, vg=vg, win_layers=pre["win_layers"],

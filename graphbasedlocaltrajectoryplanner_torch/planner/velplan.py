@@ -222,7 +222,7 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
                             vp_backend: str = "fb", sqp_x0=None,
                             veh_turn=7.0, tire_end_idx: int = 0,
                             tire_end_mps2=5.0, sqp_m: int = None,
-                            sqp_step=2.5):
+                            sqp_step=2.5, filt_window: int = 1):
     """Slot-specialized velocity stage for a batch of scenarios.  The first
     ``c_len`` rows keep the committed ``vel_course`` and replanning starts
     from ``vel_plan``.
@@ -238,6 +238,10 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
     batched ADMM solve; ``too_close`` never raised; the status hand-off per
     slot (infeasible solves zeroed, overtake slots also on inaccurate
     ones); no smoothing.
+
+    ``filt_window`` > 1 smooths every fb profile with the moving average
+    of ``ops/velocity.conv_filt`` (the handler's smoothing; ignored under
+    ``sqp``, as the reference filters only the fb planner's profiles).
 
     :param paths: (B, 4, P, 5) [x y psi kappa el]; ``n_valids``,
         ``v_end_rl``, ``red_len`` (B, 4); ``gg`` (P, 2) shared local gg
@@ -493,7 +497,7 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
     normal_bound = torch.abs(at_pref - vel_start) < v_max_offset
     normal_bound = torch.where(degenerate, False, normal_bound)
 
-    # ---- select per slot + prefix + acceleration ---------------------------
+    # ---- select per slot + prefix + smoothing + acceleration ---------------
     is_follow = torch.arange(4, device=dev) == Fs
     vx_follow_sel = torch.where(red_len[:, Fs, None],
                                 torch.minimum(vx_follow, vx_normal[:, Fs]),
@@ -505,6 +509,8 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
     vx_full = torch.where(masked, v_decel, vx_branch)
     vx_full = torch.where(idx < c_len[:, None, None], vel_course[:, None, :],
                           vx_full)
+    if filt_window > 1 and not sqp:
+        vx_full = velops.conv_filt(vx_full, filt_window)
     ax = (vx_full[..., 1:] ** 2 - vx_full[..., :-1] ** 2) \
         / torch.clamp(2.0 * el[..., :-1], min=1e-9)
     ax = torch.where(el[..., :-1] > 1e-9, ax, 0.0)

@@ -33,14 +33,16 @@ _BLOCKED_IMPORT = textwrap.dedent("""
     print(" ".join(names))
 """)
 
-# modules of the interactive path, of kernel 6 and of the SQP backend
-# (beside the fleet tick's)
+# modules of the interactive path, of kernel 6, of the SQP backend, of the
+# stage profiler, the log replay and the perception link (beside the fleet
+# tick's)
 _NEW_MODULES = (
     "ops.cuda_minplus", "planner.handler", "planner.facade",
     "planner.hostmath", "planner.objects", "utils.veh_dyn", "utils.logging",
     "testing_tools.vdc_dummy", "testing_tools.objectlist_dummy",
     "testing_tools.closed_loop", "ops.qp", "ops.cuda_admm",
-    "testing_tools.admm_cases")
+    "testing_tools.admm_cases", "parallel.profiling", "utils.replay",
+    "utils.zmq_interface", "testing_tools.profile_stages")
 
 
 def test_port_imports_without_jax():
