@@ -72,7 +72,21 @@ unclosed Monteblanco lattice with the port's builder, then:
    time, host time and launches by ``gltpl.*`` range, and the fb tick's
    cumulative stage times; the log replay (``utils/replay.py``) of the
    data log that the oval facade drive of 4 wrote, with the kernels and
-   with the plain versions, equal reports.
+   with the plain versions, equal reports;
+9. the host side: the min example's loop (``examples/main_min_example``,
+   default oval) and the std example's (``examples/main_std_example``,
+   unclosed Monteblanco with its opponent, zone and logging) through
+   ``GraphLTPL()`` and ``GraphLTPL(kernels=False)`` under one fixed clock
+   step, tick by tick as in 4; the log viewer
+   (``visualization/log_viewer``) on the std loop's log and on the oval
+   drive's of 4, validating with the kernels and with the plain versions
+   (equal reports) and rendering a tick; the facade's visual mode drawing
+   the min loop; both rendering steps only where matplotlib is installed
+   (else it says so); the native library (``native.py``, built with g++
+   here) as an oracle of the min-plus kernel's frontier and walk on the
+   dense window and of the general velocity-scan kernel; ``profile_tick``'s
+   prefix timings, ``profile_assembly``'s split and
+   ``profile_sqp.qp_micro``.
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -847,7 +861,298 @@ def log_replay_phase(data_csv, lat, card, wrapper):
           f"report == plain report; kernel replay {t_k:.1f} s", flush=True)
 
 
+# phase 9: the example loops' lengths (the plain replays on the card take
+# about 1.3 s a tick and are most of the phase)
+MIN_EXAMPLE_TICKS = 60
+STD_EXAMPLE_TICKS = 30
+VISUAL_TICKS = 20
+UNCLOSED_CSV = "parity/fixtures/traj_ltpl_unclosed_monteblanco.csv"
+
+
+def _example_pd(store, track, name, log=False):
+    pd = {"globtraj_input_path": track,
+          "graph_store_path": os.path.join(store, f"{name}.npz"),
+          "ltpl_offline_param_path": os.path.join(
+              ROOT, "params/ltpl_config_offline.ini"),
+          "ltpl_online_param_path": os.path.join(
+              ROOT, "params/ltpl_config_online.ini")}
+    if log:
+        pd.update(log_path=os.path.join(store, "logs_examples"),
+                  graph_log_id=f"{name}_example")
+    return pd
+
+
+def example_loops_phase(store, card, wrapper):
+    """Phase 9 (a) and (b): the min example's loop on the default oval and
+    the std example's on unclosed Monteblanco (opponent, zone, logging),
+    each through ``GraphLTPL()`` and ``GraphLTPL(kernels=False)`` on the
+    card under one fixed clock step, tick by tick.  Returns the std run's
+    data log and archived lattice."""
+    from graphbasedlocaltrajectoryplanner_torch.examples import (
+        main_min_example as mex, main_std_example as sex)
+    from graphbasedlocaltrajectoryplanner_torch.models import track as tt
+    from graphbasedlocaltrajectoryplanner_torch.planner.facade import (
+        GraphLTPL)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        closed_loop as cl)
+    from graphbasedlocaltrajectoryplanner_torch.utils.veh_dyn import (
+        import_veh_dyn_info)
+    csv = os.path.join(ROOT, UNCLOSED_CSV)
+    machines = import_veh_dyn_info(ax_max_machines_import_path=os.path.join(
+        ROOT, "inputs/veh_dyn_info/ax_max_machines.csv"))[1]
+    gt_min, gt_std = tt.make_oval_track(), tt.import_globtraj_csv(csv)
+    runs = [
+        ("min", "oval", MIN_EXAMPLE_TICKS,
+         lambda ltpl, n, clock: mex.drive(
+             ltpl, *mex.start_pose(gt_min.refline), n, clock=clock,
+             report_every=0)),
+        ("std", csv, STD_EXAMPLE_TICKS,
+         lambda ltpl, n, clock: sex.drive(
+             ltpl, gt_std, n, machines, zones=sex.sample_zone(ltpl),
+             clock=clock, report_every=0)),
+    ]
+    std_log = None
+    for name, track, n, loop in runs:
+        log = name == "std"
+        recs, counts, secs = {}, None, {}
+        for kernels in (True, False):
+            ltpl = GraphLTPL(_example_pd(store, track, name, log),
+                             log_to_file=log and kernels, device="cuda",
+                             kernels=kernels)
+            ltpl.graph_init()
+            clock = cl.StepClock()
+            t0 = time.perf_counter()
+            with cl.fake_time(clock):
+                if kernels:
+                    recs[kernels], counts = _run_counted(
+                        wrapper, lambda: loop(ltpl, n, clock))
+                    if log:
+                        std_log = (ltpl._path_dict["graph_log_data_path"],
+                                   ltpl._path_dict["graph_log_path"])
+                else:
+                    recs[kernels] = loop(ltpl, n, clock)
+            secs[kernels] = time.perf_counter() - t0
+        _check(all(counts[k] > 0 for k in FACADE),
+               f"{name} example: a kernel was not launched: {counts}")
+        d_pos, d_vx, seen = cl.compare(recs[True], recs[False])
+        _check(d_pos <= 2e-3 and d_vx <= 0.02,
+               f"{name} example: trajs deviate by {d_pos} m, {d_vx} m/s")
+        for r in recs[True]:
+            for trajs in r["traj_set"].values():
+                for t in trajs:
+                    _check(t.ndim == 2 and t.shape[1] == 7
+                           and bool(np.isfinite(t).all()),
+                           f"{name} example: bad trajectory {t.shape}")
+        print(f"example {name} {n} ticks ({os.path.basename(track)}, fixed "
+              f"clock step {cl.TICK_DT} s) on {card}: kernel launches "
+              f"{ {k: v for k, v in counts.items() if v} }; action sets and "
+              f"node chains equal on every tick, actions {sorted(seen)}, "
+              f"last pursued {recs[True][-1]['sel']}; max|d s,x,y|="
+              f"{d_pos:.3g} m max|d vx|={d_vx:.3g} m/s; kernel loop "
+              f"{secs[True]:.1f} s, plain loop {secs[False]:.1f} s",
+              flush=True)
+    return std_log
+
+
+def viewer_phase(store, card, wrapper, std_log, oval_log, plot):
+    """Phase 9 (c): the log viewer on the std example's log (the last tick
+    rendered to a PNG when ``plot``) and on the oval facade drive's log
+    (its object-free tick 5 rendered with its badge): the whole-log
+    validation with the kernels and with the plain versions, equal
+    reports."""
+    import contextlib
+    import dataclasses
+    from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
+    from graphbasedlocaltrajectoryplanner_torch.visualization import (
+        log_viewer)
+    for name, (data, lattice), tick in (("std_example", std_log, -1),
+                                        ("oval_facade", oval_log, 5)):
+        png = os.path.join(store, f"viewer_{name}.png")
+        lat = tl.load_lattice(lattice).to("cuda")
+        # the viewer prints its report: the line below says what it held
+        with open(os.devnull, "w") as sink, \
+                contextlib.redirect_stdout(sink):
+            if plot:
+                rep_k, counts = _run_counted(wrapper, lambda: (
+                    log_viewer.main(["--data", data, "--lattice", lattice,
+                                     "--tick", str(tick), "--out", png,
+                                     "--validate"])))
+            else:
+                rep_k, counts = _run_counted(
+                    wrapper, lambda: log_viewer.validate_log(data, lat))
+            rep_p = log_viewer.validate_log(data, lat, kernels=False)
+        _check(dataclasses.asdict(rep_k) == dataclasses.asdict(rep_p),
+               f"viewer {name}: kernel report {rep_k} != plain {rep_p}")
+        _check(rep_k.ticks > 0 and rep_k.actions_checked > 0,
+               f"viewer {name}: nothing validated: {rep_k}")
+        if name == "oval_facade":
+            _check(all(counts[k] > 0 for k in ("hit_slab", "window_dp",
+                                               "backtrace")),
+                   f"viewer {name}: the re-planning kernels did not run: "
+                   f"{counts}")
+        shown = "not rendered"
+        if plot:
+            _check(os.path.getsize(png) > 10_000, f"viewer {name}: no PNG")
+            shown = f"tick {tick} rendered with its badge to {png}"
+        print(f"viewer {name} {os.path.basename(data)} on {card}: "
+              f"{rep_k.ticks} ticks, {rep_k.actions_checked} actions, edge "
+              f"violations {rep_k.edge_violations}, node mismatches "
+              f"{rep_k.node_mismatches}, ok={rep_k.ok}; kernel launches "
+              f"{ {k: v for k, v in counts.items() if v} }; kernels report "
+              f"== plain report; {shown}", flush=True)
+
+
+def visual_phase(store, card):
+    """Phase 9 (d): a visual facade drives the min example's loop and saves
+    its last frame."""
+    from graphbasedlocaltrajectoryplanner_torch.examples import (
+        main_min_example as mex)
+    from graphbasedlocaltrajectoryplanner_torch.models import track as tt
+    from graphbasedlocaltrajectoryplanner_torch.planner.facade import (
+        GraphLTPL)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        closed_loop as cl)
+    t0 = time.perf_counter()
+    ltpl = GraphLTPL(_example_pd(store, "oval", "min"), visual_mode=True,
+                     log_to_file=False, device="cuda")
+    ltpl.graph_init()
+    clock = cl.StepClock()
+    with cl.fake_time(clock):
+        mex.drive(ltpl, *mex.start_pose(tt.make_oval_track().refline),
+                  VISUAL_TICKS, clock=clock, report_every=0)
+    png = os.path.join(store, "visual_last_frame.png")
+    ltpl._plot_handler.save(png)
+    _check(ltpl._plot_handler._tick_no == VISUAL_TICKS
+           and os.path.getsize(png) > 10_000, "visual: no frame drawn")
+    ltpl._plot_handler._plt.close("all")
+    print(f"visual: {VISUAL_TICKS} ticks of the min example drawn on "
+          f"{card}, last frame {png} ({os.path.getsize(png)} B); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def native_phase(card, wrapper, dense, sw, start4, h_goal4, shrink4):
+    """Phase 9 (e): the native library built on this machine, its scalar
+    oracles against the kernels: ``minplus_dp`` on 16 scenarios of the
+    dense window (4 slots each) against the min-plus kernel's frontier and
+    the walk, ``fb_profile`` on 8 seeded rows against the general
+    velocity-scan kernel."""
+    from graphbasedlocaltrajectoryplanner_torch import native
+    from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
+    t0 = time.perf_counter()
+    lib = native.build()
+    t_build = time.perf_counter() - t0
+    w_all = dense["w_all"][:16].cpu().numpy()
+    vg = dense["vg"][:16].cpu().numpy()
+    st, hg, sh = (x[:16].cpu().numpy() for x in (start4, h_goal4, shrink4))
+    h_k, c_k = sw["h_eff"][:16].cpu().numpy(), sw["cost"][:16].cpu().numpy()
+    d_cost, n_feas = 0.0, 0
+    for b in range(w_all.shape[0]):
+        for s in range(4):
+            h, nodes, cost = native.minplus_dp(w_all[b, s], vg[b, s],
+                                               st[b, s], hg[b, s],
+                                               shrink=bool(sh[b, s]))
+            _check(h == int(h_k[b, s]), f"native minplus_dp scenario {b} "
+                   f"slot {s}: h_eff {h} != kernel {h_k[b, s]}")
+            if h >= 1:
+                n_feas += 1
+                d = abs(cost - float(c_k[b, s]))
+                d_cost = max(d_cost, d)
+                _check(d < 1e-2, f"native minplus_dp scenario {b} slot {s}:"
+                       f" cost {cost} != kernel {c_k[b, s]}")
+    _check(n_feas > 0, "native minplus_dp: no feasible row")
+    rng = np.random.default_rng(9)
+    P, R = 200, 8
+    kappa = rng.normal(0, 0.01, (R, P))
+    el = np.full((R, P), 2.5)
+    gg = rng.uniform(8.0, 12.0, (R, P, 2))
+    machines = np.array([[0.0, 5.0], [60.0, 3.0]])
+    v_start = rng.uniform(5.0, 30.0, R)
+    ref = np.stack([native.fb_profile(kappa[r], el[r], gg[r], machines,
+                                      60.0, v_start[r], v_end=10.0)
+                    for r in range(R)])
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    args = (f32(kappa), f32(el), f32(gg), f32(machines), 60.0, f32(v_start))
+    v_k, counts = _run_counted(wrapper, lambda: velops.calc_vel_profile_fb(
+        *args, v_end=10.0))
+    v_p = velops.calc_vel_profile_fb(*args, v_end=10.0, kernels=False)
+    _check(counts["vel_scan"] == 2, f"native fb_profile: {counts}")
+    _check(torch.equal(v_k, v_p), "fb profile: kernel != plain")
+    v_k = v_k.double().cpu().numpy()
+    err = float(np.max(np.abs(v_k - ref)))
+    _check(np.allclose(v_k, ref, rtol=1e-4, atol=1e-3),
+           f"native fb_profile against the vel_scan kernel: max |d| {err}")
+    print(f"native {os.path.basename(str(lib))} built in {t_build:.1f} s "
+          f"(g++ {' '.join(native.CXX_FLAGS)}) on {card}: minplus_dp on "
+          f"{w_all.shape[0]} scenarios x 4 slots: h_eff equal to the kernels'"
+          f" ({n_feas} feasible), max |d cost| {d_cost:.3g}; fb_profile on "
+          f"{R} rows of {P} points against the vel_scan kernel (2 launches, "
+          f"bit-equal to its plain version): max |d v| {err:.3g} m/s "
+          f"(rtol 1e-4, atol 1e-3)", flush=True)
+
+
+def profile_tools_phase(oval, scen, card, wrapper):
+    """Phase 9 (f): ``profile_tick``'s prefix timings (3 ticks each, device
+    clock), ``profile_assembly``'s split and ``profile_sqp.qp_micro`` at
+    the fleet shape."""
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        profile_assembly, profile_sqp, profile_tick)
+    dev = torch.device("cuda")
+    pt = profile_tick.prefix_timings(oval, scen, 3, dev)
+    print(f"profile_tick oval_1opp B={B} on {card} (device clock, mean of 3"
+          f" ticks): until {pt['prefix_ms']} ms; stages {pt['stage_ms']} "
+          f"ms; {pt['replans_per_sec']} replans/s", flush=True)
+    pa = profile_assembly.split(oval, scen, dev, 3)
+    _check(pa["assembly"]["device_ms"] > 0 and pa["assemble_top"]
+           and pa["unmatched_launches"] == 0,
+           f"profile_assembly: nothing attributed: {pa}")
+    print(f"profile_assembly oval_1opp B={B} on {card} (a tick of "
+          f"until=assembly, {pa['tick_ms']} ms profiled): "
+          + "; ".join(f"{k} device {v['device_ms']} ms host {v['host_ms']} "
+                      f"ms {v['launches']:g} launches"
+                      for k, v in list(pa["scopes"].items())
+                      + [("assembly", pa["assembly"]),
+                         ("rest", pa["rest"])]), flush=True)
+    for r in pa["assemble_top"]:
+        name = r["name"].replace("void ", "").replace("at::native::", "")
+        print(f"  assemble kernel {r['ms']} ms x{r['launches']:g}: "
+              f"{name[:150]}", flush=True)
+    q, counts = _run_counted(wrapper, lambda: profile_sqp.qp_micro(
+        5 * B, 115, device="cuda"))
+    _check(q["finite"] and q["admm_launches_per_solve"] == 1
+           and counts["admm_vel"] > 0, f"qp_micro: {q}")
+    print(f"qp_micro {q['batch5']} rows x {q['m']} points on {card}: "
+          f"60 iterations {q['t_iters60_ms']} ms, 5 iterations "
+          f"{q['t_iters5_ms']} ms (device clock, median of {q['reps']} "
+          f"calls, each alone); "
+          f"{q['per_iteration_ms']} ms an iteration, setup + factor "
+          f"{q['setup_factor_ms']} ms; {q['admm_launches_per_solve']} "
+          f"admm_vel launch a solve", flush=True)
+    return pa, q
+
+
+def host_side_phase(store, card, wrapper, oval, scen, oval_log, dense_ctx):
+    """Phase 9 of the docstring."""
+    import importlib.util
+    t0 = time.perf_counter()
+    plot = importlib.util.find_spec("matplotlib") is not None
+    if plot:
+        import matplotlib
+        matplotlib.use("Agg")
+    else:
+        print("visual: matplotlib not installed", flush=True)
+    std_log = example_loops_phase(store, card, wrapper)
+    viewer_phase(store, card, wrapper, std_log, oval_log, plot)
+    if plot:
+        visual_phase(store, card)
+    native_phase(card, wrapper, *dense_ctx)
+    profile_tools_phase(oval, scen, card, wrapper)
+    print(f"host side phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main():
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
@@ -1185,6 +1490,7 @@ def main():
         if tname == "oval":             # replayed from its log in phase 11
             oval_log = (ltpl_k._path_dict["graph_log_data_path"],
                         ltpl_k.lattice)
+            oval_archive = (oval_log[0], ltpl_k._path_dict["graph_log_path"])
         ltpl_p = GraphLTPL(pd, device="cuda", kernels=False,
                            log_to_file=False)
         ltpl_p.graph_init()
@@ -1522,7 +1828,13 @@ def main():
     print(f"options, stage profile and log replay: "
           f"{time.perf_counter() - t_opt:.1f} s", flush=True)
 
-    # ---- 12. summary lines ------------------------------------------------
+    # ---- 12. the host side: examples, viewer, visual mode, native, tools --
+    host_side_phase(store, card, wrapper, oval, scen1, oval_archive,
+                    (dense, sw, start4, h_goal4, shrink4))
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all",
+          flush=True)
+
+    # ---- 13. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]

@@ -175,7 +175,7 @@ def _rows(x, lead, ref):
 def calc_vel_profile_fb(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
                         v_start, v_end=None, dyn_model_exp: float = 1.0,
                         drag_coeff: float = 0.85, m_veh: float = 1000.0,
-                        end_idx=None):
+                        end_idx=None, kernels: bool = True):
     """Forward-backward velocity profile on (padded) paths (tph
     ``calc_vel_profile(..., closed=False)``), one per row of the leading
     axes: ``kappa``/``el_lengths`` (..., P), ``loc_gg`` (..., P, 2) local
@@ -184,7 +184,11 @@ def calc_vel_profile_fb(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
     scalars or (...,).  ``el_lengths[i] = 0`` from ``end_idx - 1`` on;
     ``v_end`` caps the last valid point and the padding.  The forward pass
     and the backward refinement are MODE_FWD and MODE_BWD rows of
-    :func:`stacked_vel_scan`.  Returns (..., P) velocities."""
+    :func:`stacked_vel_scan`: with ``kernels`` through the velocity-scan
+    kernel's general instance on CUDA tensors (``cuda_velocity.vel_scan``).
+    Returns (..., P) velocities."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_velocity
+    scan = cuda_velocity.vel_scan if kernels else stacked_vel_scan
     lead, P = kappa.shape[:-1], kappa.shape[-1]
     kabs = torch.abs(kappa).reshape(-1, P)
     gg = torch.broadcast_to(loc_gg, lead + (P, 2)).reshape(-1, P, 2)
@@ -206,11 +210,11 @@ def calc_vel_profile_fb(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
     def mode(m):
         return torch.full((R,), m, dtype=torch.int32, device=kappa.device)
     k, a, y = kabs[:, :-1], ax[:, :-1], ay[:, :-1]
-    v_f = stacked_vel_scan(k, a, y, k, a, y, el[:, :-1], v0[:, 1:],
-                           v0[:, 0], mode(MODE_FWD), ax_max_machines,
-                           dyn_model_exp, drag_coeff, m_veh)
+    v_f = scan(k, a, y, k, a, y, el[:, :-1], v0[:, 1:], v0[:, 0],
+               mode(MODE_FWD), ax_max_machines, dyn_model_exp, drag_coeff,
+               m_veh)
     flip = lambda x: torch.flip(x, dims=[-1])               # noqa: E731
-    v_b = stacked_vel_scan(
+    v_b = scan(
         flip(kabs[:, 1:]), flip(ax[:, 1:]), flip(ay[:, 1:]), flip(k),
         flip(a), flip(y), flip(el[:, :-1]), flip(v_f[:, :-1]), v_f[:, -1],
         mode(MODE_BWD), ax_max_machines, dyn_model_exp, drag_coeff, m_veh)

@@ -189,6 +189,30 @@ def _is_device(e) -> bool:
     return str(e.device_type).endswith("CUDA")
 
 
+def device_kernels(events):
+    """The device kernels of a trace (not the spans drawn for annotations)."""
+    return [e for e in events if _is_device(e) and not _is_annotation(e)]
+
+
+def _launch_calls(events) -> dict:
+    """Correlation id -> the CPU runtime call that launched the kernel."""
+    launch_of = {}
+    for e in events:
+        if not _is_device(e) and e.name.startswith("cu"):
+            launch_of.setdefault(e.id, e)
+    return launch_of
+
+
+def _owner(p) -> str:
+    """The innermost ``gltpl.*`` range around CPU event ``p`` (a kernel's
+    launch call, or a host operator), ``other`` if none or ``p`` is None."""
+    while p is not None:
+        if _is_range(p):
+            return p.name
+        p = p.cpu_parent
+    return "other"
+
+
 def attribute(events, iters: int, wall_ms: float = None):
     """Device time of a profiled run by ``gltpl.*`` range.
 
@@ -209,10 +233,7 @@ def attribute(events, iters: int, wall_ms: float = None):
         included) and ``other``; ``unmatched`` the kernels whose launch
         call the trace does not hold (counted in ``other``).
     """
-    launch_of = {}
-    for e in events:
-        if not _is_device(e) and e.name.startswith("cu"):
-            launch_of.setdefault(e.id, e)
+    launch_of = _launch_calls(events)
     scopes = {}
 
     def scope(name):
@@ -228,18 +249,10 @@ def attribute(events, iters: int, wall_ms: float = None):
                 p = p.cpu_parent
             outer_ms += ms if p is None else 0.0
     unmatched = 0
-    for e in events:
-        if not _is_device(e) or _is_annotation(e):
-            continue
-        owner = "other"
+    for e in device_kernels(events):
         p = launch_of.get(e.id)
         unmatched += p is None
-        while p is not None:
-            if _is_range(p):
-                owner = p.name
-                break
-            p = p.cpu_parent
-        s = scope(owner)
+        s = scope(_owner(p))
         s["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
         s["launches"] += 1
     stage_ms = {}
@@ -252,6 +265,63 @@ def attribute(events, iters: int, wall_ms: float = None):
     if wall_ms is not None:
         scope("other")["host_ms"] = wall_ms - outer_ms / iters
     return stage_ms, scopes, unmatched / iters
+
+
+def profiled_ticks(tick, scen, iters: int, dev: torch.device,
+                   warm_sqp: bool = False, unprofiled: int = 0):
+    """Run the fleet tick ``tick`` on ``scen`` under ``torch.profiler``: one
+    tick under the profiler's schedule before the ``iters`` it records (a
+    session loses its first events), each tick ended by a device
+    synchronise; device activity is traced on the card only.  ``unprofiled``
+    ticks run first (2 more as warm-up); with ``warm_sqp`` every tick starts
+    from the previous tick's SQP profiles.
+
+    :returns: (the finished profiler, whose ``events()`` are the recorded
+        ticks', the mean host ms of a recorded tick, the host ms of each
+        unprofiled tick).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    over = {}
+
+    def timed_tick():
+        t0 = time.perf_counter()
+        out = tick(scen, **over)
+        _sync(dev)
+        if warm_sqp:
+            over["sqp_x0"] = out["vx_sqp"]
+        return (time.perf_counter() - t0) * 1e3
+
+    plain = [timed_tick() for _ in range(unprofiled + 2)][2:] \
+        if unprofiled else []
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=iters,
+                                    repeat=1)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    walls = []
+    with profile(activities=activities, schedule=sched) as prof:
+        for _ in range(iters + 1):
+            walls.append(timed_tick())
+            prof.step()
+    return prof, float(np.mean(walls[1:])), plain
+
+
+def top_in_range(events, iters: int, scope: str, top: int = 10):
+    """The ``top`` most expensive device kernels that range ``scope``
+    launched (each kernel to the innermost range around its launch call, as
+    :func:`attribute`), by name, as dict(name, ms, launches) per run of
+    ``iters``; empty for a trace without device activity (the CPU)."""
+    agg = {}
+    launch_of = _launch_calls(events)
+    for e in device_kernels(events):
+        if _owner(launch_of.get(e.id)) == scope:
+            a = agg.setdefault(e.name, [0.0, 0])
+            a[0] += (e.time_range.end - e.time_range.start) / 1e3
+            a[1] += 1
+    rows = sorted(agg.items(), key=lambda kv: -kv[1][0])[:top]
+    return [dict(name=name, ms=round(ms / iters, 4),
+                 launches=round(n / iters, 2)) for name, (ms, n) in rows]
 
 
 @torch.no_grad()
@@ -277,33 +347,14 @@ def stage_timings_trace(lat, scen, iters: int = 3, vp_backend: str = "fb",
         None on the CPU, where the profiler traces no device kernel, and
         when it sees none.
     """
-    from torch.profiler import ProfilerActivity, profile
-
     lat, scen, dev = _setup(lat, scen, device)
     if dev.type != "cuda":
         return None
     tick = sc.make_batched_tick(lat, device=dev, vp_backend=vp_backend,
                                 **kw)
-    over = {}
-
-    def timed_tick():
-        t0 = time.perf_counter()
-        out = tick(scen, **over)
-        _sync(dev)
-        if vp_backend == "sqp":
-            over["sqp_x0"] = out["vx_sqp"]
-        return (time.perf_counter() - t0) * 1e3
-
-    plain = [timed_tick() for _ in range(12)][2:]
-    sched = torch.profiler.schedule(wait=0, warmup=1, active=iters,
-                                    repeat=1)
-    walls = []
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=sched) as prof:
-        for _ in range(iters + 1):
-            walls.append(timed_tick())
-            prof.step()
-    wall_ms = float(np.mean(walls[1:]))
+    prof, wall_ms, plain = profiled_ticks(tick, scen, iters, dev,
+                                          warm_sqp=vp_backend == "sqp",
+                                          unprofiled=10)
     stage_ms, scopes, unmatched = attribute(prof.events(), iters, wall_ms)
     total = sum(stage_ms.values())
     if total <= 0:

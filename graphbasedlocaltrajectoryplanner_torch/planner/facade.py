@@ -2,13 +2,14 @@
 ``planner/facade.py``, API-compatible with the reference's ``Graph_LTPL``
 class (graph_ltpl/Graph_LTPL.py:26-533): construct with a ``path_dict``,
 then ``graph_init() -> set_startpos() -> loop[ calc_paths() ->
-calc_vel_profile() -> log() ]``.
+calc_vel_profile() -> log() -> visual() ]``.
 
 The planner runs on ``device`` (default: the card; without one the
 constructor raises unless ``device="cpu"`` is given).  On the card every
 stage with a Pallas kernel in the JAX package goes through its CUDA kernel;
 ``kernels=False`` takes the plain PyTorch versions on the same device.
-Only the ``fb`` velocity backend is ported.
+With ``visual_mode`` the facade draws a live plot
+(``visualization/plot_handler.PlotHandler``, matplotlib) from host arrays.
 """
 
 from __future__ import annotations
@@ -41,10 +42,8 @@ class GraphLTPL:
     def __init__(self, path_dict: dict, visual_mode: bool = False,
                  log_to_file: bool = True, device=None,
                  kernels: bool = True):
-        if visual_mode:
-            raise NotImplementedError(
-                "visualization is not ported yet (ROADMAP.md, queue 1, "
-                "item 11); use visual_mode=False")
+        self._visual_mode = visual_mode
+        self._plot_handler = None
         self._device = resolve_device(device)
         self._kernels = kernels
         for entry in REQ_PATH_DICT_ENTRIES:
@@ -180,6 +179,14 @@ class GraphLTPL:
                 graph_id=graph_id,
                 log_path=self._path_dict["graph_log_data_path"])
 
+        if self._visual_mode:
+            from graphbasedlocaltrajectoryplanner_torch.visualization \
+                .plot_handler import PlotHandler
+            self._plot_handler = PlotHandler(
+                plot_title="Local Trajectory - Online Graph",
+                include_timeline=True)
+            self._plot_handler.plot_lattice(self._lat)
+
     # ------------------------------------------------------------------
     def set_startpos(self, pos_est, heading_est, vel_est: float = 0.0) -> bool:
         """Returns True if out of track (retry semantics,
@@ -285,6 +292,14 @@ class GraphLTPL:
 
     # ------------------------------------------------------------------
     def visual(self) -> None:
-        """Graph_LTPL.visual:465-533; the facade runs without visual mode
-        (the constructor refuses it), so this does nothing."""
-        return
+        """Graph_LTPL.visual:465-533 (lightweight live plot); every argument
+        is a host array the handler already returned."""
+        if not self._visual_mode or self._plot_handler is None:
+            return
+        self._plot_handler.update_tick(
+            trajectories=self._local_trajectories,
+            obj_veh=self._obj_veh,
+            obj_zone=self._obj_zone,
+            pos_est=self._pos_est,
+            action_id=self._prev_action_id,
+            action_set=self._action_set)

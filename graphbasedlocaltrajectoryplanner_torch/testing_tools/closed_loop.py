@@ -44,6 +44,20 @@ class FakeClock:
         self.t += dt
 
 
+class StepClock(FakeClock):
+    """A fake clock that a loop reads once a tick: each call advances it by
+    ``dt`` and returns the new time, so the loop's vehicle moves ``dt`` a
+    tick; ``time()`` reads it without advancing (for ``fake_time``)."""
+
+    def __init__(self, dt: float = TICK_DT, t0: float = 1_000_000.0):
+        super().__init__(t0)
+        self.dt = dt
+
+    def __call__(self) -> float:
+        self.advance(self.dt)
+        return self.t
+
+
 @contextlib.contextmanager
 def fake_time(clock: FakeClock):
     """``time.time`` reads ``clock`` inside the block (every module that

@@ -142,8 +142,20 @@ def test_facade_device_and_backend_contract(runs, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GraphLTPL(pd)
-    with pytest.raises(NotImplementedError, match="visual"):
-        GraphLTPL(pd, visual_mode=True, device="cpu")
+    # the visual mode builds its plot, and visual() draws a tick
+    import matplotlib
+    matplotlib.use("Agg")
+    vis = GraphLTPL(dict(runs["oval"]["pd"]), visual_mode=True,
+                    log_to_file=False, device="cpu")
+    vis.graph_init()
+    assert vis._plot_handler._node_pos_flat is not None
+    vis.set_startpos(runs["oval"]["pos"], runs["oval"]["heading"])
+    vis.calc_paths(prev_action_id="straight", object_list=[])
+    vis.calc_vel_profile(pos_est=runs["oval"]["pos"], vel_est=0.0)
+    vis.visual()
+    assert vis._plot_handler._tick_no == 1
+    assert vis._plot_handler._traj_lines
+    vis._plot_handler._plt.close("all")
     # the sqp velocity backend is ported (tests/test_torch_sqp.py drives it)
     pd_sqp = dict(runs["oval"]["pd"], ltpl_online_param_path=SQP_INI)
     ltpl = GraphLTPL(pd_sqp, log_to_file=False, device="cpu")

@@ -34,15 +34,20 @@ _BLOCKED_IMPORT = textwrap.dedent("""
 """)
 
 # modules of the interactive path, of kernel 6, of the SQP backend, of the
-# stage profiler, the log replay and the perception link (beside the fleet
-# tick's)
+# stage profiler, the log replay and the perception link, of the plot, the
+# log viewer, the examples, the native library and the profiling tools
+# (beside the fleet tick's)
 _NEW_MODULES = (
     "ops.cuda_minplus", "planner.handler", "planner.facade",
     "planner.hostmath", "planner.objects", "utils.veh_dyn", "utils.logging",
     "testing_tools.vdc_dummy", "testing_tools.objectlist_dummy",
     "testing_tools.closed_loop", "ops.qp", "ops.cuda_admm",
     "testing_tools.admm_cases", "parallel.profiling", "utils.replay",
-    "utils.zmq_interface", "testing_tools.profile_stages")
+    "utils.zmq_interface", "testing_tools.profile_stages",
+    "visualization.plot_handler", "visualization.log_viewer",
+    "examples.main_min_example", "examples.main_std_example", "native",
+    "testing_tools.profile_tick", "testing_tools.profile_assembly",
+    "testing_tools.profile_sqp")
 
 
 def test_port_imports_without_jax():

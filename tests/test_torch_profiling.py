@@ -7,7 +7,6 @@ event tree (a device kernel belongs to the innermost range around its
 launch call)."""
 
 import collections
-import dataclasses
 
 import pytest
 from torch.profiler import ProfilerActivity, profile
@@ -15,7 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 from graphbasedlocaltrajectoryplanner_torch.parallel import profiling as pf
 from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as tsc
 
-from torch_port_common import carry, jax_small_oval
+from torch_port_common import Ev as _Ev, Range as _Range, carry, jax_small_oval
 
 FB_RANGES = {"gltpl.object_selection", "gltpl.plan_window", "gltpl.hit_slab",
              "gltpl.window_dp", "gltpl.const_path_objects", "gltpl.backtrace",
@@ -87,21 +86,6 @@ def test_sqp_tick_ranges(oval):
         assert seen["gltpl.qp_setup"] == 1 and seen["gltpl.qp_factor"] == 1
         assert seen["gltpl.qp_iters"] == (2 if kernels else 1)
         assert all(seen[r] == 1 for r in FB_RANGES), seen
-
-
-@dataclasses.dataclass
-class _Range:
-    start: float
-    end: float
-
-
-@dataclasses.dataclass
-class _Ev:
-    name: str
-    id: int
-    device_type: str
-    time_range: _Range
-    cpu_parent: object = None
 
 
 def test_attribution_rule_on_a_made_up_trace():

@@ -1,7 +1,9 @@
 """Shared inputs of the PyTorch-port tests (tests/test_torch_*.py): small
 lattices built by the JAX package and carried across to the port bit for
-bit, so both sides of a comparison run on identical data."""
+bit, so both sides of a comparison run on identical data; made-up profiler
+events for the attribution rules of ``parallel/profiling``."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -38,3 +40,19 @@ def carry(jax_lattice):
               for k in tlat.ARRAY_FIELDS}
     meta = {k: getattr(jax_lattice, k) for k in tlat.META_FIELDS}
     return tlat.lattice_from_numpy(arrays, meta)
+
+
+@dataclasses.dataclass
+class Range:
+    start: float
+    end: float
+
+
+@dataclasses.dataclass
+class Ev:
+    """A profiler event with the fields ``parallel/profiling`` reads."""
+    name: str
+    id: int
+    device_type: str
+    time_range: Range
+    cpu_parent: object = None
