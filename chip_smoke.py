@@ -86,7 +86,23 @@ unclosed Monteblanco lattice with the port's builder, then:
    here) as an oracle of the min-plus kernel's frontier and walk on the
    dense window and of the general velocity-scan kernel; ``profile_tick``'s
    prefix timings, ``profile_assembly``'s split and
-   ``profile_sqp.qp_micro``.
+   ``profile_sqp.qp_micro``;
+10. the multi-device paths (``parallel/distributed.py``,
+   ``make_sharded_tick``, ``parallel/spatial.py``): NCCL at world 1 in
+   this process — ``make_sharded_tick`` at batch 1024 on the default oval
+   with one opponent, kernels against plain, every field equal to
+   ``make_batched_tick``'s, the fleet statistics out of an NCCL
+   ``all_reduce``; then four ranks sharing the card over gloo (NCCL refuses
+   two ranks on one device), fresh processes started after the kernels
+   are built (``testing_tools/dist_cases``, size ``chip``): the ``dp=4``
+   tick and the composed ``(dp=2, mp=2)`` tick at batch 1024 in all and
+   ``spatial_window_dp`` with ``mp=4`` on 64 unclosed-Monteblanco
+   scenarios, each rank's kernel run against its plain run, every rank's
+   statistics equal, the gathered results against the unsharded tick and
+   the spatial tables against ``plan_window_kernel``; the spatial path's
+   ``hit_slab`` and ``minplus`` calls, recorded by rank 0, held against
+   their plain versions and timed here; per part the ms of a tick a rank
+   and the share of it in collectives.
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -863,7 +879,7 @@ def log_replay_phase(data_csv, lat, card, wrapper):
 
 # phase 9: the example loops' lengths (the plain replays on the card take
 # about 1.3 s a tick and are most of the phase)
-MIN_EXAMPLE_TICKS = 60
+MIN_EXAMPLE_TICKS = 30
 STD_EXAMPLE_TICKS = 30
 VISUAL_TICKS = 20
 UNCLOSED_CSV = "parity/fixtures/traj_ltpl_unclosed_monteblanco.csv"
@@ -1149,6 +1165,154 @@ def host_side_phase(store, card, wrapper, oval, scen, oval_log, dense_ctx):
     native_phase(card, wrapper, *dense_ctx)
     profile_tools_phase(oval, scen, card, wrapper)
     print(f"host side phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def multi_device_phase(card, wrapper, oval, mb):
+    """Phase 10 of the docstring.  Returns each kernel's launches a rank
+    in each part and the spatial path's recorded calls' numbers."""
+    import torch.distributed as dist
+    from graphbasedlocaltrajectoryplanner_torch.ops import (
+        cuda_collision, cuda_minplus)
+    from graphbasedlocaltrajectoryplanner_torch.parallel import (
+        distributed as tdist)
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        dist_cases as dc)
+    t_phase = time.perf_counter()
+    exact = dc.EXACT
+
+    def _ms(fn, reps=10):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    # (a) NCCL at world 1, in this process
+    t0 = time.perf_counter()
+    tdist.init_distributed(
+        coordinator_address=f"localhost:{tdist.free_port()}",
+        num_processes=1, process_id=0, backend="nccl", device="cuda")
+    _check(dist.get_backend() == "nccl", "multi-device: not on nccl")
+    mesh = tdist.DistMesh((1,), ("dp",))
+    scen = sc.random_scenarios(oval, B, seed=dc.SEED_DP, n_objects=1,
+                               device="cuda")
+    local = tdist.shard_scenarios(scen, mesh)
+    tick_k = sc.make_sharded_tick(oval, mesh)
+    tick_p = sc.make_sharded_tick(oval, mesh, kernels=False)
+    (res_k, st_k), nccl_counts = _run_counted(wrapper,
+                                              lambda: tick_k(local))
+    _check(all(nccl_counts[k] > 0 for k in FLEET),
+           f"sharded tick nccl: a kernel was not launched: {nccl_counts}")
+    res_p, st_p = tick_p(local)
+    d_pos, d_vx = _held("sharded tick nccl world 1", res_k, res_p, exact,
+                        "trajs")
+    ref_a = sc.make_batched_tick(oval, device="cuda")(scen)
+    torch.cuda.synchronize()
+    for k in ref_a:
+        _check(torch.equal(res_k[k], ref_a[k]),
+               f"sharded tick nccl: {k} differs from make_batched_tick")
+    cost = torch.where(ref_a["valid"], ref_a["cost"], torch.inf)
+    host = (float(cost.min()), int(ref_a["valid"].sum()))
+    got = (float(st_k["fleet_min_cost"]), int(st_k["fleet_actions"]))
+    _check(got == host and got == (float(st_p["fleet_min_cost"]),
+                                   int(st_p["fleet_actions"])),
+           f"sharded tick nccl: stats {got}, host reduction {host}")
+    ms = _ms(lambda: tick_k(local))
+    mesh.timed, mesh.collective_s = True, 0.0
+    t1 = time.perf_counter()
+    tick_k(local)
+    torch.cuda.synchronize()
+    share = mesh.collective_s / (time.perf_counter() - t1)
+    dist.destroy_process_group()
+    print(f"multi-device nccl world 1: make_sharded_tick oval_1opp B={B} on "
+          f"{card}: kernel launches "
+          f"{ {k: v for k, v in nccl_counts.items() if v} }; kernels vs "
+          f"plain fields equal, max|d pos|={d_pos:.3g} m max|d vx|="
+          f"{d_vx:.3g} m/s; every field equal to make_batched_tick; stats "
+          f"fleet_min_cost={got[0]} fleet_actions={got[1]} from an NCCL "
+          f"all_reduce, equal to the host's reduction; {ms:.2f} ms a tick "
+          f"a rank, {100 * share:.2f} % of a tick in collectives "
+          f"({mesh.n_collectives} collectives); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) four ranks sharing the card over gloo (the kernels built above)
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "artifacts", "chip_smoke", "dist")
+    reports = dc.run(out_dir, "chip", cpu=False, backend="gloo",
+                     timeout_s=420.0)
+    secs = time.perf_counter() - t0
+    # every rank's stats equal and its kernels launched, the gathered
+    # results against the unsharded kernel tick, the spatial tables
+    # against plan_window_kernel
+    m = dc.check(out_dir, reports, "chip", torch.device("cuda"))
+    rank_counts = {c: (reports[0][c] if c != "c" else reports[0]["c"]["mb"])
+                   ["launches"] for c in ("a", "b", "c")}
+    # the spatial path's kernel calls, recorded by rank 0, held and timed
+    rec = torch.load(os.path.join(out_dir, "rec_spatial.pt"))
+    spatial_stats = {}
+    for name, key, plain in (
+            ("hit_slab", "hit_slab", cuda_collision.hit_slab_plain),
+            ("minplus", "minplus_scan", cuda_minplus.minplus_scan_plain)):
+        _check(rec[key], f"multi-device c: no {name} call recorded")
+        a, kw = rec[key][0]
+        a = [x.cuda() for x in a]
+        kern = wrapper(dict((n, p) for n, p, *_ in KERNELS)[name])
+        if name == "minplus":
+            po = plain(*a)
+            for x in po:
+                _spoil(x.shape, x.dtype)
+            ko = kern(*a)
+            torch.cuda.synchronize()
+            for x, y in zip(ko, po):
+                _check(torch.equal(x, y), "minplus spatial call: not "
+                       "bit-equal")
+            rows = a[0].shape[0] * a[0].shape[1]
+            wflat = a[0].reshape(rows, *a[0].shape[2:])
+            nb, ops = _cost_minplus(wflat, a[1], *ko)
+            b_ms, by = _bound(nb, ops)
+            r = dict(ms=_device_ms(lambda: kern(*a)),
+                     wrapper_ms=_median_ms(lambda: kern(*a), 30),
+                     plain_ms=_median_ms(lambda: plain(*a), 10), err=0.0)
+            print(f"kernel minplus spatial re-run call {rows} rows "
+                  f"[{'x'.join(map(str, a[0].shape))}]: max|kernel-plain|=0 "
+                  f"(best, bp bit-equal) kernel {r['ms']:.4f} ms on the "
+                  f"device, {r['wrapper_ms']:.4f} ms a wrapper call; plain "
+                  f"{r['plain_ms']:.4f} ms bound {b_ms:.4f} ms ({by}: {nb} "
+                  f"B, {ops} ops)", flush=True)
+            r["bound_ms"], r["bound_by"] = b_ms, by
+        else:
+            r = held_and_timed(name, "spatial call", kern, plain, a, kw, 10)
+            r["bound_ms"], r["bound_by"] = _bound(r["bytes"], r["ops"])
+        spatial_stats[name] = r
+    part = {"a": "dp=4 tick oval_1opp", "b": "(dp=2, mp=2) tick oval_1opp",
+            "c": "spatial_window_dp mp=4 unclosed_monteblanco"}
+    for case in ("a", "b", "c"):
+        rs = [r[case] if case != "c" else r[case]["mb"] for r in reports]
+        print(f"multi-device gloo 4 ranks on one card, {part[case]} "
+              f"(B={B if case != 'c' else dc.SIZES['chip']['n_spatial']} in "
+              f"all) on {card}: "
+              f"{max(x['ms'] for x in rs):.2f} ms a tick a rank (ranks "
+              f"{[round(x['ms'], 2) for x in rs]}), "
+              f"{100 * max(x['collective_share'] for x in rs):.2f} % of a "
+              f"tick in collectives (ranks "
+              f"{[round(100 * x['collective_share'], 2) for x in rs]} %); "
+              f"launches a rank {rank_counts[case]}", flush=True)
+    print(f"multi-device gloo 4 ranks: every rank's stats equal (a "
+          f"{reports[0]['a']['stats']}, b {reports[0]['b']['stats']}); a "
+          f"equals the unsharded tick {m['a']}; b against it (exact fields "
+          f"but cost equal, cost within rtol 1e-4) {m['b']}; c tables "
+          f"equal on every rank, against plan_window_kernel {m['c_mb']}; "
+          f"ranks' kernels vs plain "
+          f"{[r['a']['kernels_vs_plain'] for r in reports]} (a) "
+          f"{[r['b']['kernels_vs_plain'] for r in reports]} (b); ranks "
+          f"{secs:.1f} s", flush=True)
+    print(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(nccl=nccl_counts, rank=rank_counts, spatial=spatial_stats)
 
 
 def main():
@@ -1831,10 +1995,13 @@ def main():
     # ---- 12. the host side: examples, viewer, visual mode, native, tools --
     host_side_phase(store, card, wrapper, oval, scen1, oval_archive,
                     (dense, sw, start4, h_goal4, shrink4))
+
+    # ---- 13. multi-device: NCCL at world 1, four gloo ranks on the card --
+    md = multi_device_phase(card, wrapper, oval, mb)
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all",
           flush=True)
 
-    # ---- 13. summary lines ------------------------------------------------
+    # ---- 14. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]
@@ -1867,7 +2034,15 @@ def main():
                          baseline_ms=s.get("baseline_ms"),
                          facade_baseline_ms=s.get("facade_baseline_ms"),
                          ladder_baseline_ms=s.get("ladder_baseline_ms"),
-                         bound_nofma_ms=s.get("bound_nofma_ms")))
+                         bound_nofma_ms=s.get("bound_nofma_ms"),
+                         launches_sharded_tick_nccl_world1=md["nccl"][name],
+                         launches_sharded_dp4_rank=md["rank"]["a"][name],
+                         launches_sharded_dp2_mp2_rank=md["rank"]["b"][name],
+                         launches_spatial_mp4_rank=md["rank"]["c"][name],
+                         **({f"spatial_call_{k}": md["spatial"][name][k]
+                             for k in ("ms", "wrapper_ms", "plain_ms",
+                                       "bound_ms", "bound_by")}
+                            if name in md["spatial"] else {})))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

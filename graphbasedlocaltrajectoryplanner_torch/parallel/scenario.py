@@ -9,6 +9,9 @@ and the action-set decision tree, the backpointer walk, C2-refit path
 assembly, the constant-path splice, the velocity stage (``fb`` or ``sqp``)
 and the emergency brake profile — every stage on tensors with a leading
 scenario dimension, the kernels of ``ops/cuda_*.py`` on the card.
+``make_sharded_tick`` runs the same tick over a mesh of ranks
+(``parallel/distributed.py``), optionally with the window DP split over a
+mesh axis (``parallel/spatial.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed import ReduceOp
 from torch.profiler import record_function
 
 from graphbasedlocaltrajectoryplanner_torch import resolve_device
@@ -26,6 +30,7 @@ from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
 from graphbasedlocaltrajectoryplanner_torch.ops import dynshift
 from graphbasedlocaltrajectoryplanner_torch.ops import projection as proj
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_backtrace
+from graphbasedlocaltrajectoryplanner_torch.parallel import spatial
 from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
 from graphbasedlocaltrajectoryplanner_torch.planner import velplan as vp
 
@@ -627,5 +632,89 @@ def make_batched_tick(lat: Lattice, device=None, zone_block=None,
         return scenario_tick(lat, scen, zone_block=zone_block,
                              w_last_factors=w_last_factors, kernels=kernels,
                              packed=packed, **{**kw, **over})
+
+    return tick
+
+
+def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
+                      zone_block=None, spatial_axis: str = None, device=None,
+                      w_last_factors=None, **kw):
+    """The fleet tick over a mesh of ranks (``parallel.distributed``):
+    ``fn(local_scen, **over) -> (local results, stats)``, where
+    ``local_scen`` is this rank's slice of the batch
+    (``distributed.shard_scenarios``).
+
+    Without ``spatial_axis`` every mesh axis is data-parallel: each rank
+    runs its slice as :func:`make_batched_tick` does (obstacle selection,
+    slab hits and window DP, then :func:`scenario_tick` on them).  With
+    ``spatial_axis``, scenarios shard over the other axes and each
+    scenario's window DP splits its steps over ``spatial_axis``
+    (``parallel.spatial.spatial_dp_shard``); the rest of the tick runs
+    replicated over that axis.
+
+    Fleet statistics come out of collectives: ``fleet_min_cost`` is the
+    minimum over every mesh axis of the valid actions' cost (inf where
+    none), ``fleet_actions`` the count of valid actions summed over the
+    data axes only (a spatial axis replicates the results, so a sum over
+    it would count each action once per rank of it).
+
+    :param zone_block: ``(L, N)`` shared, or ``(B, L, N)`` per scenario
+        of the whole batch (each rank keeps its rows).
+    :param device: default the mesh's device (the card unless the ranks
+        run on the CPU).
+    :param kw: options of :func:`scenario_tick`, as for
+        :func:`make_batched_tick`.
+    """
+    # distributed.py imports this module
+    from graphbasedlocaltrajectoryplanner_torch.parallel import distributed
+    if spatial_axis is not None and spatial_axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no axis {spatial_axis!r}")
+    dev = resolve_device(device if device is not None else mesh.device)
+    if lat.device != dev:
+        lat = lat.to(dev)
+    axes = tuple(mesh.axis_names)
+    data_axes = mesh.data_axes(spatial_axis)
+    if zone_block is None:
+        zone_block = torch.zeros((lat.L, lat.N), dtype=torch.bool,
+                                 device=dev)
+    zone_block = torch.as_tensor(zone_block, device=dev).to(torch.bool)
+    if zone_block.dim() == 3:
+        zone_block = zone_block[distributed.local_rows(
+            zone_block.shape[0], mesh, spatial_axis)]
+    if w_last_factors is None:
+        w_last_factors = [0.0, 0.5, 0.8]
+    w_last_factors = torch.as_tensor(w_last_factors, dtype=torch.float32,
+                                     device=dev)
+    packed = pg.packed_edge_table(lat)
+
+    @torch.no_grad()
+    def tick(scen: Scenario, **over):
+        if scen.start_layer.device != dev:
+            scen = scen.to(dev)
+        if spatial_axis is None:
+            obs, window = _batched_window(lat, scen, zone_block,
+                                          w_last_factors, kernels=kernels)
+        else:
+            with record_function("gltpl.object_selection"):
+                obs = _select_obstacle(lat, scen)
+            with record_function("gltpl.plan_window"):
+                window = spatial.spatial_dp_shard(
+                    lat, mesh, scen.start_layer, scen.start_node, zone_block,
+                    scen.obj_pos, scen.obj_radius, scen.obj_active,
+                    obs["obs_layer"], obs["obs_node"], obs["obs_found"],
+                    scen.last_nodes, w_last_factors, n_last=N_LAST,
+                    axis_name=spatial_axis, kernels=kernels)
+        res = scenario_tick(lat, scen, zone_block=zone_block,
+                            w_last_factors=w_last_factors, kernels=kernels,
+                            packed=packed,
+                            precomputed=dict(obs=obs, window=window),
+                            **{**kw, **over})
+        cost = torch.where(res["valid"], res["cost"], math.inf)
+        n_valid = res["valid"].sum(dtype=torch.int32)
+        stats = dict(
+            fleet_min_cost=mesh.all_reduce(cost.min(), ReduceOp.MIN, axes),
+            fleet_actions=(mesh.all_reduce(n_valid, ReduceOp.SUM, data_axes)
+                           if data_axes else n_valid))
+        return res, stats
 
     return tick

@@ -35,8 +35,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
 
 # modules of the interactive path, of kernel 6, of the SQP backend, of the
 # stage profiler, the log replay and the perception link, of the plot, the
-# log viewer, the examples, the native library and the profiling tools
-# (beside the fleet tick's)
+# log viewer, the examples, the native library and the profiling tools,
+# and of the multi-device tick (beside the fleet tick's)
 _NEW_MODULES = (
     "ops.cuda_minplus", "planner.handler", "planner.facade",
     "planner.hostmath", "planner.objects", "utils.veh_dyn", "utils.logging",
@@ -47,7 +47,8 @@ _NEW_MODULES = (
     "visualization.plot_handler", "visualization.log_viewer",
     "examples.main_min_example", "examples.main_std_example", "native",
     "testing_tools.profile_tick", "testing_tools.profile_assembly",
-    "testing_tools.profile_sqp")
+    "testing_tools.profile_sqp", "parallel.distributed", "parallel.spatial",
+    "testing_tools.dist_cases", "testing_tools.scaling_bench")
 
 
 def test_port_imports_without_jax():

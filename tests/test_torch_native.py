@@ -4,6 +4,10 @@ own NumPy/PyTorch function (the four cases of ``tests/test_native.py``),
 bit for bit against the JAX package's native library on the same inputs,
 and a failed build raises with the compiler's output."""
 
+import ctypes
+import fcntl
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +20,44 @@ from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
 from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
 
 from torch_port_common import UNCLOSED_CSV
+
+
+@pytest.fixture(scope="module")
+def jax_lib():
+    """The JAX package's native library, loaded in this process.
+
+    Its loader runs ``make`` at first use without a lock and keeps a failed
+    attempt for the rest of the process.  ``tests/test_native.py`` calls
+    it at collection, so on a checkout without the library every xdist
+    worker builds it at once, and a worker that loads it while another
+    worker's compiler rewrites it holds no library for good.  Under a file
+    lock, this resets that attempt and loads again, builds the library
+    itself where it is missing or still does not load, and fails (it does
+    not skip) with the loader's error where it cannot be had."""
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(native.BUILD_DIR / "jax_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not jnative.available():
+                jnative._tried, jnative._lib = False, None
+            if not jnative.available():
+                made = subprocess.run(["make", "-B", "-C",
+                                       jnative._NATIVE_DIR],
+                                      capture_output=True, text=True,
+                                      timeout=300)
+                jnative._tried, jnative._lib = False, None
+                if not jnative.available():
+                    try:
+                        ctypes.CDLL(jnative._LIB_PATH)
+                        err = "the loader refused the library"
+                    except OSError as exc:
+                        err = str(exc)
+                    pytest.fail(f"the JAX package's native library cannot "
+                                f"be loaded: {err}\nmake: {made.stdout}"
+                                f"{made.stderr}")
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return jnative
 
 
 def _dp_case(seed, H=10, N=8):
@@ -33,7 +75,7 @@ def _fb_case(seed, P=50):
                 machines=np.array([[0.0, 5.0], [60.0, 3.0]]))
 
 
-def test_native_csv_loader(tmp_path):
+def test_native_csv_loader(tmp_path, jax_lib):
     data = np.random.default_rng(0).normal(0, 10, (40, 12))
     p = tmp_path / "track.csv"
     with open(p, "w") as fh:
@@ -56,7 +98,7 @@ def test_native_csv_loader(tmp_path):
         native.load_csv(str(tmp_path / "missing.csv"))
 
 
-def test_native_variable_step_size():
+def test_native_variable_step_size(jax_lib):
     rng = np.random.default_rng(1)
     kappa = rng.normal(0, 0.01, 300)
     dist = np.full(300, 3.0)
@@ -69,7 +111,7 @@ def test_native_variable_step_size():
                                                  0.008, force_last=force_last)
 
 
-def test_native_dp_oracle_matches_port_search():
+def test_native_dp_oracle_matches_port_search(jax_lib):
     for seed in range(4):
         w, vg, start = _dp_case(seed)
         H = w.shape[0]
@@ -103,7 +145,7 @@ def test_native_fb_profile_matches_port_velocity():
 
 
 @pytest.mark.parametrize("dyn_exp", [1.0, 1.5, 2.0])
-def test_native_fb_profile_equals_jax_native(dyn_exp):
+def test_native_fb_profile_equals_jax_native(dyn_exp, jax_lib):
     for seed in range(6):
         c = _fb_case(seed, P=120)
         c["gg"] = np.random.default_rng(seed).uniform(5.0, 12.0, (120, 2))
