@@ -102,7 +102,24 @@ unclosed Monteblanco lattice with the port's builder, then:
    the spatial tables against ``plan_window_kernel``; the spatial path's
    ``hit_slab`` and ``minplus`` calls, recorded by rank 0, held against
    their plain versions and timed here; per part the ms of a tick a rank
-   and the share of it in collectives.
+   and the share of it in collectives;
+11. the entry tools: ``entry()``'s fleet tick (the small oval, B=8) on the
+   card, made by ``entry._entry_on`` once with the kernels and once with
+   the plain versions over one lattice and the same scenarios (``valid``
+   and ``cost`` equal, trajectories within 2 mm and 0.02 m/s, kernels 1-5
+   launched); ``testing_tools/validate_tracks.run_track`` on its two
+   default tracks (unclosed Monteblanco, the oval): 30 ticks with the
+   kernels on the real clock (build time, tick p50, end velocity), then
+   the first 10 ticks with the kernels and with the plain versions under
+   one fixed clock step, their per-tick records held by
+   ``closed_loop.compare`` (action sets and node chains equal on every
+   tick, trajectories within 2 mm and 0.02 m/s); and
+   ``entry.dryrun_multidevice(4, "gloo")``, four ranks sharing the card,
+   each rank's three parts held against their plain runs on the same
+   inputs (``dist_cases.tick_case`` and ``spatial_run``: exact fields,
+   statistics and spatial tables equal, trajectories within 2 mm and
+   0.02 m/s, the goal cost's walk equal) with their kernels launched, and
+   its four numbers equal to those of the same dry run on the CPU.
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -1315,6 +1332,122 @@ def multi_device_phase(card, wrapper, oval, mb):
     return dict(nccl=nccl_counts, rank=rank_counts, spatial=spatial_stats)
 
 
+# phase 11: validate_tracks' ticks on the real clock, and those held
+# kernels against plain (a plain facade tick costs 1.3-1.5 s on the card)
+VALIDATE_TICKS = 30
+VALIDATE_HELD_TICKS = 10
+
+
+def entry_tools_phase(card, wrapper):
+    """Phase 11 of the docstring.  Returns the launches of ``entry()``'s
+    tick and of rank 0's dry-run parts."""
+    from graphbasedlocaltrajectoryplanner_torch import entry as tentry
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        closed_loop as cl)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        dist_cases as dc)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        validate_tracks as vt)
+    t_phase = time.perf_counter()
+
+    # (a) entry()'s tick, with the kernels and plain, over one lattice
+    lat = tentry.small_lattice("cuda")
+    fn_k, (scen,) = tentry._entry_on(lat, "cuda")
+    fn_p, _ = tentry._entry_on(lat, "cuda", kernels=False)
+    (trajs_k, valid_k, cost_k), entry_counts = _run_counted(
+        wrapper, lambda: fn_k(scen))
+    _check(all(entry_counts[k] > 0 for k in FLEET),
+           f"entry tick: a kernel was not launched: {entry_counts}")
+    trajs_p, valid_p, cost_p = fn_p(scen)
+    d_pos, d_vx = _held("entry tick", dict(trajs=trajs_k, valid=valid_k,
+                                           cost=cost_k),
+                        dict(trajs=trajs_p, valid=valid_p, cost=cost_p),
+                        ("valid", "cost"), "trajs")
+    ms_k = _median_ms(lambda: fn_k(scen), 10)
+    ms_p = _median_ms(lambda: fn_p(scen), 3)
+    print(f"entry tick small oval B={tentry.BATCH} on {card}: kernel "
+          f"launches { {k: v for k, v in entry_counts.items() if v} }; "
+          f"valid and cost equal to the plain tick, max|d s,x,y|="
+          f"{d_pos:.3g} m max|d vx|={d_vx:.3g} m/s; {int(valid_k.sum())} "
+          f"valid actions, min cost "
+          f"{float(torch.where(valid_k, cost_k, torch.inf).min()):.2f}; "
+          f"{ms_k:.2f} ms a tick, plain {ms_p:.2f} ms", flush=True)
+
+    # (b) validate_tracks on its default tracks
+    store = os.path.join(ROOT, "artifacts", "chip_smoke", "validate")
+    os.makedirs(store, exist_ok=True)
+    for track in vt.DEFAULT_TRACKS:
+        r = vt.run_track(track, VALIDATE_TICKS, store)
+        _check(r["start_ok"] and r["empty_sets"] == 0
+               and r["mean_actions"] > 0, f"validate {track}: {r}")
+        print(f"validate_tracks {r['name']} {VALIDATE_TICKS} ticks on "
+              f"{card}: L={r['layers']} N={r['nodes']} closed={r['closed']} "
+              f"build_s={r['build_s']:.3f} tick_ms_p50="
+              f"{r['tick_ms_p50']:.2f} v_end={r['v_end']:.3f} m/s, actions "
+              f"a tick {r['mean_actions']:.2f}", flush=True)
+        rec_k, rec_p = [], []
+        rk, counts = _run_counted(wrapper, lambda: vt.run_track(
+            track, VALIDATE_HELD_TICKS, store, clock=cl.StepClock(),
+            records=rec_k))
+        rp = vt.run_track(track, VALIDATE_HELD_TICKS, store, kernels=False,
+                          clock=cl.StepClock(), records=rec_p)
+        _check(all(counts[k] > 0 for k in FACADE),
+               f"validate {track}: a kernel was not launched: {counts}")
+        _check(len(rec_k) == VALIDATE_HELD_TICKS,
+               f"validate {track}: {len(rec_k)} ticks recorded")
+        d_pos, d_vx, seen = cl.compare(rec_k, rec_p)
+        _check(d_pos <= 2e-3 and d_vx <= 0.02,
+               f"validate {track}: trajs deviate by {d_pos} m, {d_vx} m/s")
+        for k in ("start_ok", "mean_actions", "empty_sets"):
+            _check(rk[k] == rp[k], f"validate {track}: {k} {rk[k]} with the "
+                   f"kernels, {rp[k]} plain")
+        d_v = abs(rk["v_end"] - rp["v_end"])
+        _check(d_v <= 0.02, f"validate {track}: v_end deviates by {d_v}")
+        print(f"validate_tracks {r['name']} first {VALIDATE_HELD_TICKS} "
+              f"ticks (fixed clock step {cl.TICK_DT} s) on {card}: kernel "
+              f"launches { {k: v for k, v in counts.items() if v} }; action "
+              f"sets and node chains equal to the plain run on every tick, "
+              f"actions {sorted(seen)}, max|d s,x,y|={d_pos:.3g} m max|d vx|"
+              f"={d_vx:.3g} m/s, |d v_end|={d_v:.3g} m/s; kernel tick p50 "
+              f"{rk['tick_ms_p50']:.2f} ms, plain {rp['tick_ms_p50']:.2f} ms",
+              flush=True)
+
+    # (c) the multi-device dry run, four gloo ranks sharing the card (each
+    # rank holds its parts against their plain runs), against the CPU's
+    t0 = time.perf_counter()
+    d = tentry.dryrun_multidevice(4, "gloo")
+    secs = time.perf_counter() - t0
+    parts = {"dp": "a", "spatial": "c", "dp_mp": "b"}
+    for rep in d["reports"]:
+        for part, case in parts.items():
+            cnt = rep[part]["launches"]
+            _check(all(cnt[k] > 0 for k in dc.CASE_KERNELS[case]),
+                   f"dry run rank {rep['rank']} {part}: launches {cnt}")
+    t0 = time.perf_counter()
+    d_cpu = tentry.dryrun_multidevice(4, "gloo", device="cpu")
+    secs_cpu = time.perf_counter() - t0
+    nums = {k: d[k] for k in tentry.KEYS}
+    _check(nums == {k: d_cpu[k] for k in tentry.KEYS},
+           f"dry run: card {nums}, CPU { {k: d_cpu[k] for k in tentry.KEYS} }")
+    rank0 = {p: {k: v for k, v in d["reports"][0][p]["launches"].items()
+                 if v} for p in parts}
+    held = [(r["dp"]["kernels_vs_plain"], r["dp_mp"]["kernels_vs_plain"])
+            for r in d["reports"]]
+    print(f"dryrun_multidevice(4, 'gloo') on {card}: fleet_min_cost="
+          f"{d['fleet_min_cost']} actions={d['actions']} "
+          f"spatial_dp_goal_cost={d['spatial_dp_goal_cost']} "
+          f"dp_mp_composed_min_cost={d['dp_mp_composed_min_cost']}, equal "
+          f"to the CPU dry run's; every rank agrees; each rank's parts "
+          f"equal to their plain runs (dp, dp_mp max|d s,x,y|, |d vx|: "
+          f"{held}); "
+          f"rank 0's launches {rank0}; card {secs:.1f} s, CPU "
+          f"{secs_cpu:.1f} s", flush=True)
+    print(f"entry tools phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(entry=entry_counts,
+                dryrun={p: d["reports"][0][p]["launches"] for p in parts})
+
+
 def main():
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1998,10 +2131,13 @@ def main():
 
     # ---- 13. multi-device: NCCL at world 1, four gloo ranks on the card --
     md = multi_device_phase(card, wrapper, oval, mb)
+
+    # ---- 14. the entry tools: entry(), validate_tracks, the dry run -------
+    et = entry_tools_phase(card, wrapper)
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all",
           flush=True)
 
-    # ---- 14. summary lines ------------------------------------------------
+    # ---- 15. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]
@@ -2039,6 +2175,12 @@ def main():
                          launches_sharded_dp4_rank=md["rank"]["a"][name],
                          launches_sharded_dp2_mp2_rank=md["rank"]["b"][name],
                          launches_spatial_mp4_rank=md["rank"]["c"][name],
+                         launches_entry_tick=et["entry"][name],
+                         launches_dryrun_dp4_rank=et["dryrun"]["dp"][name],
+                         launches_dryrun_spatial_mp4_rank=et["dryrun"][
+                             "spatial"][name],
+                         launches_dryrun_dp2_mp2_rank=et["dryrun"][
+                             "dp_mp"][name],
                          **({f"spatial_call_{k}": md["spatial"][name][k]
                              for k in ("ms", "wrapper_ms", "plain_ms",
                                        "bound_ms", "bound_by")}

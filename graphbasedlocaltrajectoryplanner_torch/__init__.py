@@ -32,3 +32,12 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA device requested but none is available")
     return dev
+
+
+def __getattr__(name):
+    # lazy, as the JAX package's: importing the package stays cheap
+    if name == "GraphLTPL":
+        from graphbasedlocaltrajectoryplanner_torch.planner.facade import (
+            GraphLTPL)
+        return GraphLTPL
+    raise AttributeError(name)

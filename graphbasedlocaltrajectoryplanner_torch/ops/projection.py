@@ -19,10 +19,14 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         lead + (1, x.shape[-1])))[..., 0, :]
 
 
-def closest_path_index(path: torch.Tensor, pos: torch.Tensor):
+def closest_path_index(path: torch.Tensor, pos: torch.Tensor,
+                       valid_mask: torch.Tensor = None):
     """Index of the closest point of ``path`` (..., n, 2) to ``pos``
-    (..., 2) (first on ties), and the squared distances (..., n)."""
+    (..., 2) (first on ties), and the squared distances (..., n).
+    ``valid_mask`` (..., n) excludes padded rows (their distance is inf)."""
     d2 = torch.sum((path - pos[..., None, :]) ** 2, dim=-1)
+    if valid_mask is not None:
+        d2 = torch.where(valid_mask, d2, math.inf)
     return torch.argmin(d2, dim=-1), d2
 
 
@@ -35,17 +39,20 @@ def _angle3pt(a, b, c):
 
 
 def get_s_coord(ref_line: torch.Tensor, pos: torch.Tensor,
-                s_array: torch.Tensor, closed: bool = False):
+                s_array: torch.Tensor = None, closed: bool = False,
+                valid_mask: torch.Tensor = None):
     """Continuous s-coordinate of ``pos`` on a polyline: closest vertex, the
     neighbour whose 3-point angle at ``pos`` is larger holds the foot
     point, perpendicular drop onto that segment.
 
-    :param ref_line: (..., n, 2); ``pos``: (..., 2); ``s_array``: (..., n).
+    :param ref_line: (..., n, 2); ``pos``: (..., 2); ``s_array``: (..., n),
+        default the polyline's cumulative chord length; ``valid_mask``
+        (..., n) excludes padded rows from the closest-vertex search.
     :returns: (s (...,), (idx_a, idx_b)) the ordered neighbouring indices
               enclosing the projection.
     """
     n = ref_line.shape[-2]
-    idx_nb, _ = closest_path_index(ref_line, pos)
+    idx_nb, _ = closest_path_index(ref_line, pos, valid_mask)
     if closed:
         idx1 = torch.remainder(idx_nb - 1, n)
         idx2 = torch.remainder(idx_nb + 1, n)
@@ -60,6 +67,10 @@ def get_s_coord(ref_line: torch.Tensor, pos: torch.Tensor,
     b_idx = torch.where(use_prev, idx_nb, idx2)
     a_pos = _take(ref_line, a_idx)
     b_pos = _take(ref_line, b_idx)
+    if s_array is None:
+        d = torch.linalg.vector_norm(torch.diff(ref_line, dim=-2), dim=-1)
+        s_array = torch.cat([torch.zeros_like(d[..., :1]),
+                             torch.cumsum(d, dim=-1)], dim=-1)
     ab = b_pos - a_pos
     denom = torch.clamp(ab[..., 0] * ab[..., 0] + ab[..., 1] * ab[..., 1],
                         min=1e-12)

@@ -93,8 +93,8 @@ def _setup(lat, scen, device):
 
 
 @torch.no_grad()
-def stage_timings(lat, scen, iters: int = 10, p_max: int = None,
-                  device=None, kernels: bool = True):
+def stage_timings(lat, scen, iters: int = 10, kernels: bool = True,
+                  p_max: int = None, *, device=None):
     """Time the three stages of the fleet tick (host clock, synchronised)
     and derive a roofline-style account, as the JAX package's
     ``stage_timings``.
@@ -325,8 +325,8 @@ def top_in_range(events, iters: int, scope: str, top: int = 10):
 
 
 @torch.no_grad()
-def stage_timings_trace(lat, scen, iters: int = 3, vp_backend: str = "fb",
-                        device=None, **kw):
+def stage_timings_trace(lat, scen, iters: int = 3, kernels: bool = True, *,
+                        vp_backend: str = "fb", device=None, **kw):
     """Per-stage attribution of the real fleet tick's device time from a
     ``torch.profiler`` trace (CPU and CUDA activities), as the JAX
     package's ``stage_timings_trace`` (and ``profile_sqp``'s attribution
@@ -350,8 +350,8 @@ def stage_timings_trace(lat, scen, iters: int = 3, vp_backend: str = "fb",
     lat, scen, dev = _setup(lat, scen, device)
     if dev.type != "cuda":
         return None
-    tick = sc.make_batched_tick(lat, device=dev, vp_backend=vp_backend,
-                                **kw)
+    tick = sc.make_batched_tick(lat, kernels, device=dev,
+                                vp_backend=vp_backend, **kw)
     prof, wall_ms, plain = profiled_ticks(tick, scen, iters, dev,
                                           warm_sqp=vp_backend == "sqp",
                                           unprofiled=10)

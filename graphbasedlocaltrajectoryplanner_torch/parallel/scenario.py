@@ -483,9 +483,9 @@ def scenario_tick(lat: Lattice, scen: Scenario,
         psi_s = torch.where(scen.warm[:, None], scen.psi_start[:, None],
                             psi_cold)
         res_all = pg.assemble_action_kernel(
-            lat, packed, out["win_layers"].repeat_interleave(4, dim=0),
+            lat, out["win_layers"].repeat_interleave(4, dim=0),
             nodes4.reshape(B * 4, H + 1), h_safe.reshape(B * 4),
-            psi_s.reshape(B * 4), p_max=p_max)
+            psi_s.reshape(B * 4), p_max=p_max, packed=packed)
         path4 = res_all["path"].reshape(B, 4, p_max, 5)
         n_valid4 = res_all["n_valid"].reshape(B, 4)
 
@@ -560,11 +560,11 @@ def scenario_tick(lat: Lattice, scen: Scenario,
             obj_dist, c_obj_vel, f32(safety_d), opp_stop_dist, roll_vel,
             roll_cum, f32(lat.veh_length), f32(1.25), f32(0.025), f32(0.2),
             f32(15.0), dyn_model_exp, drag_coeff, m_veh,
-            (float(gg_lim[0]), float(gg_lim[1])), follow_slot=pg.SLOT_FOLLOW,
-            kernels=kernels, vp_backend=vp_backend, sqp_x0=sqp_x0,
+            follow_slot=pg.SLOT_FOLLOW, filt_window=filt_window,
+            vp_backend=vp_backend, sqp_x0=sqp_x0,
             veh_turn=f32(lat.veh_turn), tire_end_idx=tire_end_idx,
             tire_end_mps2=f32(tire_end_mps2), sqp_m=sqp_m, sqp_step=sqp_step,
-        filt_window=filt_window)
+            const_gg=(float(gg_lim[0]), float(gg_lim[1])), kernels=kernels)
         trajs4 = o["trajs"]
         # broken velocity constraints remove overtake actions; follow and
         # straight are always retained
@@ -595,8 +595,8 @@ def scenario_tick(lat: Lattice, scen: Scenario,
     return res
 
 
-def make_batched_tick(lat: Lattice, device=None, zone_block=None,
-                      w_last_factors=None, kernels: bool = True, **kw):
+def make_batched_tick(lat: Lattice, kernels: bool = True, zone_block=None,
+                      w_last_factors=None, *, device=None, **kw):
     """The fleet tick: ``tick(scen) -> dict`` over a batch of scenarios.
 
     Runs on ``device`` (default: the card; ``"cpu"`` for the plain PyTorch
@@ -699,11 +699,11 @@ def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
                 obs = _select_obstacle(lat, scen)
             with record_function("gltpl.plan_window"):
                 window = spatial.spatial_dp_shard(
-                    lat, mesh, scen.start_layer, scen.start_node, zone_block,
+                    lat, scen.start_layer, scen.start_node, zone_block,
                     scen.obj_pos, scen.obj_radius, scen.obj_active,
                     obs["obs_layer"], obs["obs_node"], obs["obs_found"],
                     scen.last_nodes, w_last_factors, n_last=N_LAST,
-                    axis_name=spatial_axis, kernels=kernels)
+                    axis_name=spatial_axis, mesh=mesh, kernels=kernels)
         res = scenario_tick(lat, scen, zone_block=zone_block,
                             w_last_factors=w_last_factors, kernels=kernels,
                             packed=packed,

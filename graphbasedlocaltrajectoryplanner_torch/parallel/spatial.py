@@ -117,18 +117,28 @@ def rerun_from_frontier(f, w4, kernels: bool = True):
     return best[..., 2:, :], bp[..., 2:, :]
 
 
-def spatial_dp_shard(lat: Lattice, mesh, start_layer, start_node, zone_block,
+def spatial_dp_shard(lat: Lattice, start_layer, start_node, zone_block,
                      obj_pos, obj_radius, obj_active, obs_layer, obs_node,
                      obs_found, last_nodes, w_last_factors, n_last: int = 4,
-                     axis_name: str = "mp", kernels: bool = True):
+                     axis_name: str = "mp", D: int = None, *, mesh,
+                     kernels: bool = True):
     """The two-phase window DP of this rank's scenarios (leading B) over
     mesh axis ``axis_name``, called by every rank of the axis on the same
     scenarios.  Returns the full tables, equal on every rank of the axis:
     dict(best, bp, vg (B, 4, H+1, N), win_layers (B, H+1), h_goal (B,)),
-    as ``pathgen.plan_window_kernel``."""
+    as ``pathgen.plan_window_kernel``.
+
+    :param D: the axis' size, as the JAX package's body is told it; given,
+        it must equal ``mesh.shape[axis_name]``.
+    :param mesh: the ``distributed.DistMesh`` whose ranks call this (the
+        JAX package's ``shard_map`` mesh).
+    """
     L, N, H = lat.L, lat.N, lat.H_max
     dev = lat.device
     B = start_layer.shape[0]
+    if D is not None and D != mesh.shape[axis_name]:
+        raise ValueError(f"D={D} but the mesh's axis {axis_name!r} holds "
+                         f"{mesh.shape[axis_name]} ranks")
     D = mesh.shape[axis_name]
     i = mesh.coords[axis_name]
     Hd = -(-H // D)
@@ -194,7 +204,8 @@ def spatial_window_dp(lat: Lattice, mesh, start_layer, start_node,
     it with scenario sharding over the other axes."""
     if "mp" not in mesh.shape:
         raise ValueError("mesh has no axis 'mp'")
-    return spatial_dp_shard(lat, mesh, start_layer, start_node, zone_block,
+    return spatial_dp_shard(lat, start_layer, start_node, zone_block,
                             obj_pos, obj_radius, obj_active, obs_layer,
                             obs_node, obs_found, last_nodes, w_last_factors,
-                            n_last=n_last, axis_name="mp", kernels=kernels)
+                            n_last=n_last, axis_name="mp", mesh=mesh,
+                            kernels=kernels)

@@ -563,8 +563,8 @@ class OnlineHandler:
         # ---- one assembly over every selected action ----------------------
         R = len(selected)
         res = pg.assemble_action_kernel(
-            lat, self.packed, out["win_layers"].expand(R, -1), nodes_all,
-            h_effs, self._f32(psi_s), p_max=self.P)
+            lat, out["win_layers"].expand(R, -1), nodes_all, h_effs,
+            self._f32(psi_s), p_max=self.P, packed=self.packed)
         paths = _np(res["path"])
         n_valids = _np(res["n_valid"])
         node_idxs = _np(res["node_idx"])

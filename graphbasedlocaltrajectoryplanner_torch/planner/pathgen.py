@@ -94,18 +94,27 @@ def window_vg(lat: Lattice, win_layers, zone_block, p_obs, in_win, obs_node):
                                     vg_win)], dim=1)
 
 
+def _check_n_last(last_nodes, n_last):
+    if n_last is not None and n_last != last_nodes.shape[-1]:
+        raise ValueError(f"n_last={n_last} but last_nodes holds "
+                         f"{last_nodes.shape[-1]} nodes a scenario")
+
+
 def plan_window_kernel(lat: Lattice, start_layer, start_node, zone_block,
                        obj_pos, obj_radius, obj_active, obs_layer, obs_node,
                        obs_found, last_nodes, w_last_factors,
-                       kernels: bool = True):
+                       n_last: int = None, kernels: bool = True):
     """Masked 4-slot DP for a batch of scenarios: the slab hit masks and
     the window DP (kernels 1 and 2 on the card, in the profiler ranges
     ``gltpl.hit_slab`` and ``gltpl.window_dp``), then the virtual-goal
     vectors.
 
+    :param n_last: the length of ``last_nodes``' chains (default
+        ``last_nodes.shape[-1]``; another value raises).
     :returns: dict with ``best``/``bp``/``vg`` (B, 4, H+1, N),
         ``win_layers`` (B, H+1), ``h_goal`` (B,).
     """
+    _check_n_last(last_nodes, n_last)
     pre = window_meta(lat, start_layer, obj_pos, obj_radius, obj_active,
                       obs_layer, obs_node, obs_found)
     with record_function("gltpl.hit_slab"):
@@ -128,7 +137,7 @@ def plan_window_kernel(lat: Lattice, start_layer, start_node, zone_block,
 def plan_window_dense(lat: Lattice, start_layer, start_node, zone_block,
                       obj_pos, obj_radius, obj_active, obs_layer, obs_node,
                       obs_found, last_nodes, w_last_factors,
-                      kernels: bool = True):
+                      n_last: int = None, kernels: bool = True):
     """Dense (materialized-window) variant of :func:`plan_window_kernel`:
     the masked ``w_all (B, 4, H, N, N)`` is built in full, the object
     blocks by :func:`ops.collision.edge_block_mask` over every window
@@ -140,6 +149,7 @@ def plan_window_dense(lat: Lattice, start_layer, start_node, zone_block,
         ``win_layers`` (B, H+1), ``blocked`` (B, H, N, N), ``obj_layer``
         (B, O), ``h_goal`` (B,) and ``w_all``.
     """
+    _check_n_last(last_nodes, n_last)
     L, N, H = lat.L, lat.N, lat.H_max
     dev = lat.device
     B = start_layer.shape[0]
@@ -296,8 +306,8 @@ def packed_edge_table(lat: Lattice):
                       coeffs.reshape(L, N, N, 8)], dim=-1)
 
 
-def assemble_action_kernel(lat: Lattice, packed, win_layers, nodes, h_eff,
-                           psi_s, p_max: int):
+def assemble_action_kernel(lat: Lattice, win_layers, nodes, h_eff, psi_s,
+                           p_max: int, *, packed=None):
     """Fuse each row's node chain into one C2 path (fixed size).
 
     Per-edge sample counts give the fused index layout (shared endpoints
@@ -306,13 +316,16 @@ def assemble_action_kernel(lat: Lattice, packed, win_layers, nodes, h_eff,
     (clamped headings, chord lengths = stored edge lengths) is re-sampled
     with the same per-segment counts for x, y, psi, kappa.
 
-    :param packed: :func:`packed_edge_table` of ``lat``.
+    :param packed: :func:`packed_edge_table` of ``lat`` (built here when
+        not given; a caller that assembles every tick passes its own).
     :param win_layers: (R, H+1); ``nodes`` (R, H+1) window node chains
         (-1 pad); ``h_eff`` (R,) >= 1; ``psi_s`` (R,) start headings.
     :returns: dict(path (R, p_max, 5) [x y psi kappa el], n_valid (R,),
         node_idx (R, H+1) int32 path row of each chain node, coeffs
         (R, H, 8) refit coefficients [x a0..a3, y a0..a3])
     """
+    if packed is None:
+        packed = packed_edge_table(lat)
     H = lat.H_max
     dev = nodes.device
     R = nodes.shape[0]

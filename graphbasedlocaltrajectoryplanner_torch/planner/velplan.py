@@ -217,12 +217,12 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
                             opp_stop_dist, roll_vel, roll_cum, veh_length,
                             ctrl_cp, ctrl_kd, ctrl_kp, ctrl_tanw,
                             dyn_model_exp, drag_coeff, m_veh,
-                            const_gg: tuple = None, control_type: str = "PD",
-                            follow_slot: int = 1, kernels: bool = True,
-                            vp_backend: str = "fb", sqp_x0=None,
-                            veh_turn=7.0, tire_end_idx: int = 0,
+                            control_type: str = "PD", follow_slot: int = 1,
+                            filt_window: int = 1, vp_backend: str = "fb",
+                            sqp_x0=None, veh_turn=7.0, tire_end_idx: int = 0,
                             tire_end_mps2=5.0, sqp_m: int = None,
-                            sqp_step=2.5, filt_window: int = 1):
+                            sqp_step=2.5, const_gg: tuple = None, *,
+                            kernels: bool = True):
     """Slot-specialized velocity stage for a batch of scenarios.  The first
     ``c_len`` rows keep the committed ``vel_course`` and replanning starts
     from ``vel_plan``.
@@ -546,10 +546,10 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
                     opp_stop_dist, roll_vel, roll_cum, veh_length, ctrl_cp,
                     ctrl_kd, ctrl_kp, ctrl_tanw, dyn_model_exp, drag_coeff,
                     m_veh, control_type: str = "PD", filt_window: int = 1,
-                    kernels: bool = True, vp_backend: str = "fb",
-                    sqp_x0=None, is_overtake=None, veh_turn=7.0,
-                    tire_end_idx: int = 0, tire_end_mps2=5.0,
-                    sqp_m: int = None, sqp_step=2.5):
+                    vp_backend: str = "fb", sqp_x0=None, is_overtake=None,
+                    veh_turn=7.0, tire_end_idx: int = 0, tire_end_mps2=5.0,
+                    sqp_m: int = None, sqp_step=2.5, *,
+                    kernels: bool = True):
     """Full velocity profile of R actions of one tick (OTH:736-941).
 
     Per action: ``path`` (R, P, 5) [x y psi kappa el] cut at the ego

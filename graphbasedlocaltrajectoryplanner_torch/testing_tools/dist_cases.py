@@ -21,12 +21,14 @@ each rank:
 Rank 0 writes the gathered results of a, b and d and every rank its
 tables of c to ``DIR`` (``.npz``); each rank prints one JSON line: its
 fleet statistics, its kernels' launches per case (counted from 0 just
-before the kernel run), and with ``--size chip`` the kernel run against
-the plain run on the same rank, the ms of a tick a rank and the share of
-it spent in collectives.  ``small`` is the CPU tests' size (the small
-oval, L=45, N=24, H=20); ``chip`` the card's: the default oval at B=1024
-and 64 unclosed-Monteblanco scenarios, where rank 0 also records the
-spatial path's ``hit_slab`` and ``minplus`` calls (``rec_spatial.pt``).
+before the kernel run), on the card the kernel run against the plain
+run on the same rank, and with ``--size chip`` the ms of a tick a rank
+and the share of it spent in collectives.  ``small`` is the CPU tests'
+size (the small oval, L=45, N=24, H=20); ``chip`` the card's: the default
+oval at B=1024 and 64 unclosed-Monteblanco scenarios, where rank 0 also
+records the spatial path's ``hit_slab`` and ``minplus`` calls
+(``rec_spatial.pt``).  :func:`tick_case`, :func:`window_args` and
+:func:`spatial_run` also make the parts of ``entry.dryrun_multidevice``.
 """
 
 from __future__ import annotations
@@ -117,9 +119,17 @@ def spatial_inputs(lat, n: int, seed: int, device):
         scen.start_layer[-1] = end
         scen.start_node[-1] = lat.rl_idx[end]
         scen.last_nodes[-1] = -1
+    return window_args(lat, scen, (0.0, 0.5, 0.8))
+
+
+def window_args(lat, scen, w_last_factors):
+    """The arguments of ``pathgen.plan_window_kernel`` after ``lat`` for
+    the scenarios ``scen``: their obstacles, no zone, the given
+    last-action weights."""
     obs = sc._select_obstacle(lat, scen)
-    zone = torch.zeros((lat.L, lat.N), dtype=torch.bool, device=device)
-    wlf = torch.tensor([0.0, 0.5, 0.8], dtype=torch.float32, device=device)
+    zone = torch.zeros((lat.L, lat.N), dtype=torch.bool, device=lat.device)
+    wlf = torch.tensor(w_last_factors, dtype=torch.float32,
+                       device=lat.device)
     return (scen.start_layer, scen.start_node, zone, scen.obj_pos,
             scen.obj_radius, scen.obj_active, obs["obs_layer"],
             obs["obs_node"], obs["obs_found"], scen.last_nodes, wlf)
@@ -250,10 +260,15 @@ def zone_case(lat, scen):
     return zb
 
 
-def tick_case(tag, mesh, lat, batch, seed, spatial_axis, size, out_dir,
-              dev, zones=False):
-    """Cases a and b: the sharded tick on this rank's slice, gathered
-    (with ``zones``, under :func:`zone_case`'s per-scenario zones)."""
+def tick_case(tag, mesh, lat, batch, seed, spatial_axis, dev, *,
+              out_dir=None, timed=False, zones=False):
+    """The sharded tick on this rank's slice of a seeded batch with one
+    opponent each, gathered (with ``zones``, under :func:`zone_case`'s
+    per-scenario zones).  On the card the kernel run is held against the
+    plain run on the same slice (:func:`_held`, the statistics equal);
+    ``timed`` adds the ms of a tick a rank and its share in collectives;
+    with ``out_dir`` rank 0 writes the gathered results to ``<tag>.npz``.
+    Returns the report: statistics, launches, local and gathered batch."""
     scen = sc.random_scenarios(lat, batch, seed=seed, n_objects=1,
                                device=dev)
     local = distributed.shard_scenarios(scen, mesh, spatial_axis)
@@ -263,21 +278,39 @@ def tick_case(tag, mesh, lat, batch, seed, spatial_axis, size, out_dir,
     (res, stats), launches = counted(lambda: tick(local), dev)
     rep = dict(stats={k: float(v) for k, v in stats.items()},
                launches=launches, local_batch=int(local.start_layer.shape[0]))
-    if size == "chip":
+    if dev.type == "cuda":
         tick_p = sc.make_sharded_tick(lat, mesh, spatial_axis=spatial_axis,
-                                      device=dev, kernels=False)
+                                      device=dev, kernels=False,
+                                      zone_block=zone_case(lat, scen)
+                                      if zones else None)
         res_p, stats_p = tick_p(local)
         rep["kernels_vs_plain"] = _held(res, res_p, tag)
         if {k: float(v) for k, v in stats_p.items()} != rep["stats"]:
             raise AssertionError(f"{tag}: stats differ kernels vs plain")
+    if timed:
         rep["ms"], rep["collective_share"] = _timing(
             lambda: tick(local), mesh, dev, 5)
     g = distributed.gather_results(
         {k: res[k] for k in EXACT + ("trajs",)}, mesh, spatial_axis)
-    if mesh.rank == 0:
+    rep["batch"] = int(g["trajs"].shape[0])
+    if out_dir is not None and mesh.rank == 0:
         np.savez(os.path.join(out_dir, f"{tag}.npz"),
                  **{k: v.cpu().numpy() for k, v in g.items()})
     return rep
+
+
+def spatial_run(tag, mesh, lat, args, dev):
+    """``spatial_window_dp`` of ``args`` over the ``mp`` axis of ``mesh``,
+    its launches counted; on the card held against the plain run on the
+    same inputs (every table equal).  Returns ``(tables, report)``."""
+    out, launches = counted(
+        lambda: spatial.spatial_window_dp(lat, mesh, *args), dev)
+    if dev.type == "cuda":
+        out_p = spatial.spatial_window_dp(lat, mesh, *args, kernels=False)
+        for k in out:
+            if not torch.equal(out[k], out_p[k]):
+                raise AssertionError(f"{tag}: {k} differs kernels vs plain")
+    return out, dict(launches=launches)
 
 
 class _Record:
@@ -315,16 +348,8 @@ def spatial_case(mesh, lats, size, out_dir, dev):
         lat = lats[name]
         args = spatial_inputs(lat, SIZES[size]["n_spatial"], SEED_SPATIAL,
                               dev)
-        out, launches = counted(
-            lambda: spatial.spatial_window_dp(lat, mesh, *args), dev)
-        r = dict(launches=launches)
+        out, r = spatial_run(f"spatial {name}", mesh, lat, args, dev)
         if size == "chip":
-            out_p = spatial.spatial_window_dp(lat, mesh, *args,
-                                              kernels=False)
-            for k in ("best", "bp", "vg"):
-                if not torch.equal(out[k], out_p[k]):
-                    raise AssertionError(f"spatial {name}: {k} differs "
-                                         "kernels vs plain")
             r["ms"], r["collective_share"] = _timing(
                 lambda: spatial.spatial_window_dp(lat, mesh, *args), mesh,
                 dev, 5)
@@ -366,15 +391,17 @@ def main(argv=None):
                backend=dist.get_backend())
     t0 = time.perf_counter()
     mesh = distributed.DistMesh((4,), ("dp",))
+    timed = args.size == "chip"
     rep["a"] = tick_case("a", mesh, lats["oval"], size["batch_dp"], SEED_DP,
-                         None, args.size, args.out, dev)
+                         None, dev, out_dir=args.out, timed=timed)
     mesh = distributed.DistMesh((2, 2), ("dp", "mp"))
     rep["b"] = tick_case("b", mesh, lats["oval"], size["batch_composed"],
-                         SEED_COMPOSED, "mp", args.size, args.out, dev)
+                         SEED_COMPOSED, "mp", dev, out_dir=args.out,
+                         timed=timed)
     if args.size == "small":
         rep["b_zones"] = tick_case("b_zones", mesh, lats["oval"],
                                    size["batch_composed"], SEED_COMPOSED,
-                                   "mp", args.size, args.out, dev, True)
+                                   "mp", dev, out_dir=args.out, zones=True)
     mesh = distributed.DistMesh((4,), ("mp",))
     rep["c"] = spatial_case(mesh, lats, args.size, args.out, dev)
     if size["selftest"]:

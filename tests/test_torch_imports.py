@@ -22,6 +22,9 @@ _BLOCKED_IMPORT = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block())
     import graphbasedlocaltrajectoryplanner_torch as pkg
+    facade = "graphbasedlocaltrajectoryplanner_torch.planner.facade"
+    assert facade not in sys.modules            # GraphLTPL resolves lazily
+    assert pkg.GraphLTPL is importlib.import_module(facade).GraphLTPL
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
     for n in names:
@@ -36,7 +39,7 @@ _BLOCKED_IMPORT = textwrap.dedent("""
 # modules of the interactive path, of kernel 6, of the SQP backend, of the
 # stage profiler, the log replay and the perception link, of the plot, the
 # log viewer, the examples, the native library and the profiling tools,
-# and of the multi-device tick (beside the fleet tick's)
+# of the multi-device tick, and the entry tools (beside the fleet tick's)
 _NEW_MODULES = (
     "ops.cuda_minplus", "planner.handler", "planner.facade",
     "planner.hostmath", "planner.objects", "utils.veh_dyn", "utils.logging",
@@ -48,7 +51,8 @@ _NEW_MODULES = (
     "examples.main_min_example", "examples.main_std_example", "native",
     "testing_tools.profile_tick", "testing_tools.profile_assembly",
     "testing_tools.profile_sqp", "parallel.distributed", "parallel.spatial",
-    "testing_tools.dist_cases", "testing_tools.scaling_bench")
+    "testing_tools.dist_cases", "testing_tools.scaling_bench", "entry",
+    "testing_tools.validate_tracks")
 
 
 def test_port_imports_without_jax():
