@@ -28,7 +28,11 @@ unclosed Monteblanco lattice with the port's builder, then:
    ``em_base`` equal, trajectories within 2 mm and 0.02 m/s, and every
    kernel's launch count above zero in the kernel tick; the window-DP,
    slab-hit and walk calls of the second and third mix are held against
-   their plain versions and timed too;
+   their plain versions and timed too.  On the card ``make_batched_tick``
+   returns the compiled tick (one CUDA graph per input signature), whose
+   replays run no Python: here and in 6, 8 and 11 the launches are counted
+   and the kernel calls recorded on its eager body (``tick.__wrapped__``),
+   the ticks timed are the compiled ones, and 12 holds the two equal;
 3. runs the dense-window search (``pathgen.plan_window_dense`` and
    ``search.search_window``, B=1024 on the default oval with 1 opponent)
    through the min-plus kernel: the kernel bit-equal to its plain version,
@@ -119,7 +123,18 @@ unclosed Monteblanco lattice with the port's builder, then:
    inputs (``dist_cases.tick_case`` and ``spatial_run``: exact fields,
    statistics and spatial tables equal, trajectories within 2 mm and
    0.02 m/s, the goal cost's walk equal) with their kernels launched, and
-   its four numbers equal to those of the same dry run on the CPU.
+   its four numbers equal to those of the same dry run on the CPU;
+12. the compiled fleet tick (``make_batched_tick`` on the card, captured by
+   ``ops/cuda_graph.capture``) against its eager body
+   (``tick.__wrapped__``), ``torch.equal`` on every output field: the
+   three mixes of 2 on the capture's batch and on a batch made after the
+   capture, with tick n's outputs unchanged by tick n+1; a 3-tick sqp
+   warm-start chain; the options of 8 and a shared and a per-scenario zone
+   mask; ``entry()``'s B=8 tick; then the fb tick at B=1024 and B=1 and the
+   warm sqp tick, eager and compiled in turns (eager, compiled, compiled,
+   eager; every window printed), each compiled tick's device kernels and
+   busy share from a profiled replay (the fleet kernels among them), and
+   what each signature cost to capture (warm-up, capture, graph pool).
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -665,9 +680,9 @@ def ragged_admm():
 def profile_device(fn):
     """``fn()`` once under ``torch.profiler``: its device kernels (kernel
     events only: the aten ops that launch them carry the same device time
-    again) as ``dict(n, busy_ms, top, ms_of)``, ``top`` the six longest by
-    name, ``ms_of(word)`` the device time of the kernels whose name holds
-    ``word``."""
+    again) as ``dict(n, busy_ms, top, ms_of, count_of)``, ``top`` the six
+    longest by name, ``ms_of(word)`` and ``count_of(word)`` the device time
+    and the number of the kernels whose name holds ``word``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -689,7 +704,8 @@ def profile_device(fn):
         top=[f"{e.key[:48]} x{e.count} {self_dev_us(e) / 1e3:.3f} ms"
              for e in top],
         ms_of=lambda word: sum(self_dev_us(e) for e in dev
-                               if word in e.key) / 1e3)
+                               if word in e.key) / 1e3,
+        count_of=lambda word: sum(e.count for e in dev if word in e.key))
 
 
 def _sqp_pd(store, tname, track):
@@ -786,8 +802,10 @@ def options_phase(oval, scen, card, wrapper, fb_prof):
         ("until=decide", dict(until="decide"), ("src", "h_eff", "valid"),
          "h_eff", {"hit_slab", "window_dp"}),
     ]
+    # the launches counted on the eager body (a replay runs no Python); the
+    # compiled ticks of these options are phase 12's
     for label, kw, fields, traj, need in runs:
-        tick_k = sc.make_batched_tick(oval, device="cuda", **kw)
+        tick_k = sc.make_batched_tick(oval, device="cuda", **kw).__wrapped__
         tick_p = sc.make_batched_tick(oval, device="cuda", kernels=False,
                                       **kw)
         out_k, counts = _run_counted(wrapper, lambda: tick_k(scen))
@@ -803,7 +821,7 @@ def options_phase(oval, scen, card, wrapper, fb_prof):
               f"{d_pos:.3g} m max|d vx|={d_vx:.3g} m/s", flush=True)
 
     sqp_kw = dict(profile_stages.sqp_options(oval), p_max=p_big)
-    tick_k = sc.make_batched_tick(oval, device="cuda", **sqp_kw)
+    tick_k = sc.make_batched_tick(oval, device="cuda", **sqp_kw).__wrapped__
     tick_p = sc.make_batched_tick(oval, device="cuda", kernels=False,
                                   **sqp_kw)
     rec = Recorder({"admm_vel": (cuda_admm, "admm_vel")})
@@ -1342,6 +1360,7 @@ def entry_tools_phase(card, wrapper):
     """Phase 11 of the docstring.  Returns the launches of ``entry()``'s
     tick and of rank 0's dry-run parts."""
     from graphbasedlocaltrajectoryplanner_torch import entry as tentry
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         closed_loop as cl)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
@@ -1350,14 +1369,18 @@ def entry_tools_phase(card, wrapper):
         validate_tracks as vt)
     t_phase = time.perf_counter()
 
-    # (a) entry()'s tick, with the kernels and plain, over one lattice
+    # (a) entry()'s tick, with the kernels and plain, over one lattice; the
+    # launches counted on the eager body of the same tick (a replay of the
+    # compiled one runs no Python)
     lat = tentry.small_lattice("cuda")
     fn_k, (scen,) = tentry._entry_on(lat, "cuda")
     fn_p, _ = tentry._entry_on(lat, "cuda", kernels=False)
-    (trajs_k, valid_k, cost_k), entry_counts = _run_counted(
-        wrapper, lambda: fn_k(scen))
+    _, entry_counts = _run_counted(
+        wrapper, lambda: sc.make_batched_tick(lat, device="cuda").__wrapped__(
+            scen))
     _check(all(entry_counts[k] > 0 for k in FLEET),
            f"entry tick: a kernel was not launched: {entry_counts}")
+    trajs_k, valid_k, cost_k = fn_k(scen)
     trajs_p, valid_p, cost_p = fn_p(scen)
     d_pos, d_vx = _held("entry tick", dict(trajs=trajs_k, valid=valid_k,
                                            cost=cost_k),
@@ -1446,6 +1469,203 @@ def entry_tools_phase(card, wrapper):
           flush=True)
     return dict(entry=entry_counts,
                 dryrun={p: d["reports"][0][p]["launches"] for p in parts})
+
+
+# phase 12: synchronised ticks a window of the paired readings (eager,
+# compiled, compiled, eager)
+PAIRED_TICKS = 20
+# the fleet kernels by a word of their device name, and the least count of
+# launches a compiled fb tick's replay shows
+FLEET_NAMES = (("hit_slab", "hit_slab", 1), ("window_dp", "window_dp", 1),
+               ("backtrace", "walk_kernel", 1),
+               ("vel_scan", "vel_scan_kernel", 6))
+# words of the kernels' device names counted in a replay's profile (the
+# two velocity-scan instances by their first template argument, CGG)
+REPLAY_WORDS = ("hit_slab", "window_dp", "walk_kernel",
+                "vel_scan_kernel<true", "vel_scan_kernel<false", "admm_vel")
+
+
+def _tick_ms(fn, n):
+    """Median host ms of ``n`` synchronised calls of ``fn``."""
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def _same(label, out_c, out_e):
+    """The compiled tick's outputs against the eager tick's: the same
+    fields, each ``torch.equal``."""
+    _check(set(out_c) == set(out_e),
+           f"{label}: fields {sorted(out_c)} against {sorted(out_e)}")
+    for k in out_e:
+        _check(torch.equal(out_c[k], out_e[k]),
+               f"{label}: {k} differs from the eager tick's")
+
+
+def _capture_cost(tick):
+    """What each signature of a compiled tick cost to capture."""
+    return "; ".join(
+        f"warm-up {c.warmup_ms:.1f} ms, capture {c.capture_ms:.1f} ms, "
+        f"graph pool {c.pool_bytes / 2 ** 20:.1f} MiB"
+        for c in tick.graphs.values())
+
+
+def compiled_tick_phase(card, oval, mb):
+    """Phase 12 of the docstring."""
+    from graphbasedlocaltrajectoryplanner_torch import entry as tentry
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        dist_cases as dc)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        profile_stages)
+    t_phase = time.perf_counter()
+
+    # (a) the three mixes: the capture's batch, a batch made after the
+    # capture (the static inputs refilled), tick n's outputs after tick n+1
+    for mix, lat, skw in (
+            ("oval_1opp", oval, dict(n_objects=1)),
+            ("oval_3opp_o16", oval, dict(n_objects=3, o_pad=sc.O_PAD)),
+            ("unclosed_monteblanco_1opp", mb, dict(n_objects=1))):
+        tick = sc.make_batched_tick(lat, device="cuda")
+        _check(hasattr(tick, "graphs") and tick.__wrapped__ is not tick,
+               f"compiled {mix}: make_batched_tick did not compile the tick")
+        scen = sc.random_scenarios(lat, B, seed=0, device="cuda", **skw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_c = tick(scen)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        _same(f"compiled {mix}", out_c, tick.__wrapped__(scen))
+        kept = {k: v.clone() for k, v in out_c.items()}
+        fresh = sc.random_scenarios(lat, B, seed=12, device="cuda", **skw)
+        out_f = tick(fresh)
+        _same(f"compiled {mix} batch made after the capture", out_f,
+              tick.__wrapped__(fresh))
+        _check(not torch.equal(out_f["trajs"], kept["trajs"]),
+               f"compiled {mix}: the second batch returned the first's")
+        for k, v in kept.items():
+            _check(torch.equal(out_c[k], v),
+                   f"compiled {mix}: tick n's {k} changed in tick n+1")
+        _check(len(tick.graphs) == 1,
+               f"compiled {mix}: {len(tick.graphs)} signatures captured")
+        print(f"compiled tick {mix} B={B} on {card}: every field "
+              f"torch.equal to the eager tick's on the capture's batch and "
+              f"on a batch made after the capture; tick n's outputs "
+              f"unchanged by tick n+1; first call {first_ms:.1f} ms "
+              f"({_capture_cost(tick)})", flush=True)
+        del tick
+
+    # (b) a 3-tick sqp warm-start chain, the profiles fed back
+    scen1 = sc.random_scenarios(oval, B, seed=0, n_objects=1, device="cuda")
+    sqp_kw = profile_stages.sqp_options(oval)
+    sqp = sc.make_batched_tick(oval, device="cuda", **sqp_kw)
+    over_c, over_e = {}, {}
+    for step in range(3):
+        out_c = sqp(scen1, **over_c)
+        out_e = sqp.__wrapped__(scen1, **over_e)
+        _same(f"compiled sqp chain tick {step}", out_c, out_e)
+        over_c = dict(sqp_x0=out_c["vx_sqp"])
+        over_e = dict(sqp_x0=out_e["vx_sqp"])
+    _check(len(sqp.graphs) == 2,
+           f"compiled sqp chain: {len(sqp.graphs)} signatures captured")
+    print(f"compiled tick oval_1opp sqp B={B} on {card}: a 3-tick warm "
+          f"chain (vx_sqp fed back as sqp_x0) torch.equal to the eager "
+          f"chain in every field of every tick; cold and warm signature "
+          f"({_capture_cost(sqp)})", flush=True)
+
+    # (c) phase 8's options and the zone masks
+    p_big = sc.default_p_max(oval) + 64
+    zones = dc.zone_case(oval, scen1)
+    opts = [("filt_window=5", dict(filt_window=5)),
+            ("incl_emergency=False", dict(incl_emergency=False)),
+            (f"p_max={p_big}", dict(p_max=p_big)),
+            ("until=assembly", dict(until="assembly")),
+            ("until=decide", dict(until="decide")),
+            (f"sqp p_max={p_big}", dict(sqp_kw, p_max=p_big)),
+            ("zone_block shared", dict(zone_block=zones[B - 1])),
+            ("zone_block per scenario", dict(zone_block=zones))]
+    for label, kw in opts:
+        tick = sc.make_batched_tick(oval, device="cuda", **kw)
+        _same(f"compiled options {label}", tick(scen1),
+              tick.__wrapped__(scen1))
+        del tick
+    print(f"compiled tick oval_1opp B={B} options on {card}: "
+          f"{', '.join(label for label, _ in opts)}: every field torch.equal "
+          f"to the eager tick's", flush=True)
+
+    # (d) entry()'s tick, B=8 on the small oval
+    lat_s = tentry.small_lattice("cuda")
+    fn, (scen_e,) = tentry._entry_on(lat_s, "cuda")
+    ref = sc.make_batched_tick(lat_s, device="cuda").__wrapped__(scen_e)
+    for call in range(2):
+        got = fn(scen_e)
+        _same(f"compiled entry tick call {call}",
+              dict(zip(("trajs", "valid", "cost"), got)),
+              {k: ref[k] for k in ("trajs", "valid", "cost")})
+    print(f"compiled entry tick small oval B={tentry.BATCH} on {card}: "
+          f"trajs, valid and cost torch.equal to the eager tick's on the "
+          f"first call and on a replay", flush=True)
+
+    # (e) the readings: eager and compiled in one process, in turns
+    scen_b1 = sc.random_scenarios(oval, 1, seed=1, device="cuda")
+    fb = sc.make_batched_tick(oval, device="cuda")
+    warm = over_c["sqp_x0"]
+    readings = {}
+    for label, tick, call in (
+            (f"fb B={B}", fb, lambda t: t(scen1)),
+            (f"sqp warm B={B}", sqp, lambda t: t(scen1, sqp_x0=warm)),
+            ("fb B=1", fb, lambda t: t(scen_b1))):
+        call(tick)
+        call(tick.__wrapped__)
+        windows = [(name, _tick_ms(lambda: call(f), PAIRED_TICKS))
+                   for name, f in (("eager", tick.__wrapped__),
+                                   ("compiled", tick), ("compiled", tick),
+                                   ("eager", tick.__wrapped__))]
+        e_ms = (windows[0][1] + windows[3][1]) / 2
+        c_ms = (windows[1][1] + windows[2][1]) / 2
+        prof_c = profile_device(lambda: call(tick))
+        prof_e = profile_device(lambda: call(tick.__wrapped__))
+        if prof_c["n"] and label == f"fb B={B}":
+            for name, word, least in FLEET_NAMES:
+                _check(prof_c["count_of"](word) >= least,
+                       f"compiled {label}: the replay ran no {name} "
+                       f"kernel: {prof_c['top']}")
+        if prof_c["n"] and label.startswith("sqp"):
+            _check(prof_c["count_of"]("admm_vel") >= 1,
+                   f"compiled {label}: the replay ran no admm_vel kernel")
+        readings[label] = dict(eager_ms=e_ms, compiled_ms=c_ms,
+                               kernels=prof_c["n"],
+                               busy_ms=prof_c["busy_ms"])
+        busy = (f"{prof_c['n']} device kernels a replay ("
+                + ", ".join(f"{w} x{prof_c['count_of'](w)}"
+                            for w in REPLAY_WORDS)
+                + f"), device busy "
+                f"{prof_c['busy_ms']:.3f} ms "
+                f"({100 * prof_c['busy_ms'] / c_ms:.1f} % of the compiled "
+                f"tick); eager {prof_e['n']} kernels, "
+                f"{prof_e['busy_ms']:.3f} ms "
+                f"({100 * prof_e['busy_ms'] / e_ms:.1f} %)"
+                if prof_c["n"] else
+                "the profiler saw no device time (not measured)")
+        print(f"compiled tick oval {label} on {card}: host ms a tick "
+              f"(median of {PAIRED_TICKS} synchronised ticks a window, in "
+              f"turns) "
+              + ", ".join(f"{n} {ms:.3f}" for n, ms in windows)
+              + f"; eager {e_ms:.3f} ms, compiled {c_ms:.3f} ms "
+              f"(eager / compiled {e_ms / c_ms:.2f}); {busy}", flush=True)
+    print(f"compiled tick signatures on {card}: fb (B={B}, B=1): "
+          f"{_capture_cost(fb)}; sqp (cold, warm): {_capture_cost(sqp)}",
+          flush=True)
+    del fb, sqp
+    torch.cuda.empty_cache()
+    print(f"compiled tick phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return readings
 
 
 def main():
@@ -1541,8 +1761,9 @@ def main():
     for name, path, *_ in KERNELS[:len(FLEET)]:
         m, f = path.split(".")
         targets[name] = (mods[m], f)
+    # the eager body: a graph replay passes no call through a recorder
     with Recorder(targets) as recorder:
-        tick_k(scen1)
+        tick_k.__wrapped__(scen1)
     torch.cuda.synchronize()
     calls = recorder.calls
 
@@ -1600,10 +1821,13 @@ def main():
         scen = sc.random_scenarios(lat, B, seed=0, device="cuda", **skw)
         tick_k = sc.make_batched_tick(lat, device="cuda")
         tick_p = sc.make_batched_tick(lat, device="cuda", kernels=False)
+        # the launches counted and the calls recorded on the eager body
+        # (a replay runs no Python), its outputs held against plain here
+        # and against the compiled tick in phase 12
         for _, path, *_ in KERNELS:
             wrapper(path).launches = 0
         with Recorder({k: targets[k] for k in REDESIGNED}) as mix_rec:
-            out_k = tick_k(scen)
+            out_k = tick_k.__wrapped__(scen)
         torch.cuda.synchronize()
         counts = {name: wrapper(path).launches
                   for name, path, *_ in KERNELS[:len(FLEET)]}
@@ -1626,6 +1850,7 @@ def main():
         _check(tr.shape[:2] == (B, sc.N_OUT), f"{mix}: shape {tr.shape}")
         n_valid_actions = int(out_k["valid"].sum())
         _check(n_valid_actions > 0, f"{mix}: no valid action")
+        tick_k(scen)                    # the capture
         ts = []
         for _ in range(10):
             torch.cuda.synchronize()
@@ -1650,14 +1875,15 @@ def main():
         print(f"tick {mix} B={B} O={scen.obj_pos.shape[1]} on {card}: "
               f"kernel launches {counts}; equal fields equal; "
               f"max|d pos|={d_pos:.3g} m max|d vx|={d_vx:.3g} m/s; "
-              f"valid actions {n_valid_actions}; kernel tick "
+              f"valid actions {n_valid_actions}; kernel tick (compiled) "
               f"{t_med * 1e3:.2f} ms = {B / t_med:.1f} replans/s; plain "
               f"tick {tp_med * 1e3:.2f} ms = {B / tp_med:.1f} replans/s",
               flush=True)
 
-    # where the time goes: one kernel tick (oval, 1 opponent) under
-    # torch.profiler — device kernels launched and their summed time
-    tick_k = sc.make_batched_tick(oval, device="cuda")
+    # where the time goes: one eager kernel tick (oval, 1 opponent) under
+    # torch.profiler — device kernels launched and their summed time (the
+    # compiled tick's profile is phase 12's)
+    tick_k = sc.make_batched_tick(oval, device="cuda").__wrapped__
     tick_k(scen1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1666,15 +1892,15 @@ def main():
     wall_ms = (time.perf_counter() - t0) * 1e3
     prof = fb_prof = profile_device(lambda: tick_k(scen1))
     if prof["n"]:
-        print(f"profile tick oval_1opp B={B} on {card}: {prof['n']} device "
-              f"kernels, device busy {prof['busy_ms']:.2f} ms of a "
+        print(f"profile tick oval_1opp B={B} eager on {card}: {prof['n']} "
+              f"device kernels, device busy {prof['busy_ms']:.2f} ms of a "
               f"{wall_ms:.2f} ms unprofiled tick "
               f"({100 * prof['busy_ms'] / wall_ms:.1f} %); top: "
               + "; ".join(prof["top"]))
     else:
         print("profile: the profiler saw no device time (not measured)")
 
-    # single-replan latency through the kernel tick
+    # single-replan latency through the kernel tick (compiled)
     scen_b1 = sc.random_scenarios(oval, 1, seed=1, device="cuda")
     tick_k = sc.make_batched_tick(oval, device="cuda")
     tick_k(scen_b1)
@@ -1685,7 +1911,7 @@ def main():
         tick_k(scen_b1)
         torch.cuda.synchronize()
         lat_s.append(time.perf_counter() - t0)
-    print(f"single replan (B=1, oval) on {card}: p50 "
+    print(f"single replan (B=1, oval, compiled) on {card}: p50 "
           f"{np.percentile(lat_s, 50) * 1e3:.2f} ms p99 "
           f"{np.percentile(lat_s, 99) * 1e3:.2f} ms")
 
@@ -1918,8 +2144,9 @@ def main():
     for _, path, *_ in KERNELS:
         wrapper(path).launches = 0
     admm_target = {"admm_vel": (cuda_admm, "admm_vel")}
+    # counted and recorded on the eager body, as in the mixes
     with Recorder(admm_target) as sqp_rec:
-        out_k = tick_k(scen1)
+        out_k = tick_k.__wrapped__(scen1)
     torch.cuda.synchronize()
     sqp_fleet_counts = {name: wrapper(path).launches
                         for name, path, *_ in KERNELS}
@@ -1943,6 +2170,7 @@ def main():
     status = {c: int((out_k["qp_status"] == c).sum()) for c in (0, 2, -3)}
     # the next ticks start warm from this tick's profiles
     warm = out_k["vx_sqp"]
+    tick_k(scen1, sqp_x0=warm)          # the capture
     ts = []
     for _ in range(10):
         torch.cuda.synchronize()
@@ -1962,18 +2190,22 @@ def main():
           f"{ {k: v for k, v in sqp_fleet_counts.items() if v} }; equal "
           f"fields and qp_status equal (statuses {status}); max|d pos|="
           f"{d_pos:.3g} m max|d vx|={d_vx:.3g} m/s max|d vx_sqp|={d_raw:.3g}"
-          f" m/s; kernel tick {t_med * 1e3:.2f} ms = {B / t_med:.1f} "
+          f" m/s; kernel tick (compiled) {t_med * 1e3:.2f} ms = "
+          f"{B / t_med:.1f} "
           f"replans/s; plain tick {tp_med * 1e3:.2f} ms = "
           f"{B / tp_med:.1f} replans/s", flush=True)
-    # where the time of a warm sqp tick goes (torch.profiler)
-    prof = profile_device(lambda: tick_k(scen1, sqp_x0=warm))
+    # where the time of a warm sqp tick goes (torch.profiler), the eager
+    # body beside the compiled tick's time (the compiled profile is phase
+    # 12's)
+    prof = profile_device(lambda: tick_k.__wrapped__(scen1, sqp_x0=warm))
     if prof["n"]:
         admm_ms = prof["ms_of"]("admm")
-        print(f"profile tick oval_1opp sqp B={B} warm on {card}: "
+        print(f"profile tick oval_1opp sqp B={B} warm eager on {card}: "
               f"{prof['n']} device kernels, device busy "
               f"{prof['busy_ms']:.2f} ms of a {t_med * 1e3:.2f} ms "
-              f"unprofiled tick ({100 * prof['busy_ms'] / (t_med * 1e3):.1f}"
-              f" %); admm_vel {admm_ms:.3f} ms on the device "
+              f"unprofiled compiled tick "
+              f"({100 * prof['busy_ms'] / (t_med * 1e3):.1f} %); admm_vel "
+              f"{admm_ms:.3f} ms on the device "
               f"({100 * admm_ms / prof['busy_ms']:.1f} % of the busy time, "
               f"{100 * admm_ms / (t_med * 1e3):.1f} % of the tick); top: "
               + "; ".join(prof["top"]), flush=True)
@@ -2134,10 +2366,13 @@ def main():
 
     # ---- 14. the entry tools: entry(), validate_tracks, the dry run -------
     et = entry_tools_phase(card, wrapper)
+
+    # ---- 15. the compiled tick against its eager body ---------------------
+    compiled_tick_phase(card, oval, mb)
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all",
           flush=True)
 
-    # ---- 15. summary lines ------------------------------------------------
+    # ---- 16. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
+
 
 def object_layers(refline: torch.Tensor, obj_pos: torch.Tensor):
     """Closest refline layer per object: refline (L, 2), obj_pos (..., 2)
@@ -66,8 +68,8 @@ def closest_object(obj_layer, obj_active, start_layer, h_goal,
     Returns (idx (...,) int32, layer_dist (...,), found (...,)); ``idx`` is
     the first object on ties and arbitrary when nothing is found."""
     dev = obj_layer.device
-    start = torch.as_tensor(start_layer, device=dev).long()[..., None]
-    h_goal = torch.as_tensor(h_goal, device=dev).long()[..., None]
+    start = cuda_graph.as_tensor(start_layer, device=dev).long()[..., None]
+    h_goal = cuda_graph.as_tensor(h_goal, device=dev).long()[..., None]
     fwd = layer_dist_mod(start, obj_layer.long(), num_layers)
     ok = obj_active & (fwd <= h_goal)
     fwd_masked = torch.where(ok, fwd, num_layers + 1)

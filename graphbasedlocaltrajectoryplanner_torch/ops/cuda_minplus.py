@@ -15,6 +15,7 @@ import math
 import torch
 
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_build as cb
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
 
 
@@ -46,7 +47,7 @@ def kernel_args(w_window, start_node):
     R = math.prod(lead)
     w = w_window.reshape(R, H, N, N).contiguous()
     cb.require(w, torch.float32, (R, H, N, N), "w_window")
-    start, ks = start_arg(torch.as_tensor(start_node, device=w.device),
+    start, ks = start_arg(cuda_graph.as_tensor(start_node, device=w.device),
                           lead)
     start, wide = cb.index_tensor(start, (R // ks,), "start_node")
     best = torch.empty((R, H + 1, N), dtype=torch.float32, device=w.device)

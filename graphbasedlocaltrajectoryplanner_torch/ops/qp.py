@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
 
 _BIG = 1e12
@@ -44,8 +45,7 @@ def admm_qp(P, q, A, l, u, iters: int = 60, rho=1.0,
     """
     n = q.shape[-1]
     m = l.shape[-1]
-    rho = torch.broadcast_to(torch.as_tensor(rho, dtype=q.dtype,
-                                             device=q.device),
+    rho = torch.broadcast_to(cuda_graph.as_tensor(rho, q.dtype, q.device),
                              l.shape[:-1] + (m,))
     eye = torch.eye(n, dtype=q.dtype, device=q.device)
     At = A.transpose(-1, -2)
@@ -211,7 +211,7 @@ def admm_vel_qp(d: dict, iters: int = 60, sigma: float = 1e-6,
 
 
 def _f32(x, ref):
-    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    return cuda_graph.as_tensor(x, ref.dtype, ref.device)
 
 
 def _vel_qp_data(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
@@ -244,11 +244,11 @@ def _vel_qp_data(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
         v_max_scale = torch.amax(v_max_pt, dim=-1)
     v_max_s = per_row(v_max_scale)
     v_start = per_row(v_start)
-    end_idx = torch.broadcast_to(torch.as_tensor(end_idx,
-                                                 device=kappa.device),
+    end_idx = torch.broadcast_to(cuda_graph.as_tensor(end_idx,
+                                                      device=kappa.device),
                                  lead)[..., None]
-    pin_idx = torch.broadcast_to(torch.as_tensor(pin_idx,
-                                                 device=kappa.device),
+    pin_idx = torch.broadcast_to(cuda_graph.as_tensor(pin_idx,
+                                                      device=kappa.device),
                                  lead)[..., None]
 
     # velocity caps

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
+
 INF = 1e30
 # costs at or above this threshold mean "unreachable"
 FEAS_THRESH = 1e29
@@ -30,7 +32,7 @@ def minplus_scan(w_window: torch.Tensor, start_node):
     """
     *lead, H, N, _ = w_window.shape
     dev = w_window.device
-    start = torch.as_tensor(start_node, device=dev).long().reshape(lead)
+    start = cuda_graph.as_tensor(start_node, device=dev).long().reshape(lead)
     best = torch.full(tuple(lead) + (N,), INF, dtype=w_window.dtype,
                       device=dev)
     best.scatter_(-1, start[..., None], 0.0)
@@ -55,8 +57,8 @@ def backtrace(bp: torch.Tensor, h_eff, goal_node):
     """
     R, Hp1, N = bp.shape
     dev = bp.device
-    h_eff = torch.as_tensor(h_eff, device=dev).long()
-    goal = torch.as_tensor(goal_node, device=dev).long()
+    h_eff = cuda_graph.as_tensor(h_eff, device=dev).long()
+    goal = cuda_graph.as_tensor(goal_node, device=dev).long()
     rows = torch.arange(R, device=dev)
     carry = goal
     out = [None] * Hp1
@@ -86,8 +88,8 @@ def select_goal(best: torch.Tensor, vg_cost: torch.Tensor, h_goal,
     goal_tot = best + vg_cost
     layer_min = torch.amin(goal_tot, dim=-1)                     # (..., H+1)
     hs = torch.arange(Hp1, device=dev)
-    h_goal = torch.as_tensor(h_goal, device=dev).long().expand(lead)
-    shrink = torch.as_tensor(shrink_horizon, device=dev).expand(lead)
+    h_goal = cuda_graph.as_tensor(h_goal, device=dev).long().expand(lead)
+    shrink = cuda_graph.as_tensor(shrink_horizon, device=dev).expand(lead)
     feas = (layer_min < FEAS_THRESH) & (hs >= 1) & (hs <= h_goal[..., None])
     h_shrunk = torch.amax(torch.where(feas, hs, 0), dim=-1)
     at_goal = torch.gather(feas, -1, h_goal.clamp(0, Hp1 - 1)[..., None])
@@ -119,7 +121,7 @@ def search_window(w_window, start_node, vg_cost, h_goal, shrink_horizon,
             else cuda_backtrace.backtrace_walk_plain)
     *lead, H, N, _ = w_window.shape
     dev = w_window.device
-    start = torch.as_tensor(start_node, device=dev).long().expand(lead)
+    start = cuda_graph.as_tensor(start_node, device=dev).long().expand(lead)
     best, bp = scan(w_window, start)
     h_eff, goal_node, cost, feasible = select_goal(best, vg_cost, h_goal,
                                                    shrink_horizon)

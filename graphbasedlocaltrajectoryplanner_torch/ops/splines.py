@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops.heading import (
     heading_to_dir, dir_to_heading)
 
@@ -149,7 +150,7 @@ def fit_periodic_chain(points_closed, el_lengths=None):
 
 def eval_spline(coeffs, t):
     """Evaluate segment(s) ``coeffs`` (..., 4, 2) at ``t`` (...,) -> (..., 2)."""
-    t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)[..., None]
+    t = cuda_graph.as_tensor(t, coeffs.dtype, coeffs.device)[..., None]
     a0, a1, a2, a3 = (coeffs[..., 0, :], coeffs[..., 1, :],
                       coeffs[..., 2, :], coeffs[..., 3, :])
     return a0 + t * (a1 + t * (a2 + t * a3))
@@ -157,14 +158,14 @@ def eval_spline(coeffs, t):
 
 def eval_spline_d(coeffs, t):
     """First derivative wrt t."""
-    t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)[..., None]
+    t = cuda_graph.as_tensor(t, coeffs.dtype, coeffs.device)[..., None]
     a1, a2, a3 = coeffs[..., 1, :], coeffs[..., 2, :], coeffs[..., 3, :]
     return a1 + t * (2.0 * a2 + t * 3.0 * a3)
 
 
 def eval_spline_dd(coeffs, t):
     """Second derivative wrt t."""
-    t = torch.as_tensor(t, dtype=coeffs.dtype, device=coeffs.device)[..., None]
+    t = cuda_graph.as_tensor(t, coeffs.dtype, coeffs.device)[..., None]
     a2, a3 = coeffs[..., 2, :], coeffs[..., 3, :]
     return 2.0 * a2 + t * 6.0 * a3
 
@@ -225,7 +226,7 @@ def sample_chain_stepnum(coeffs, stepnum, total_pts: int):
     """
     dev = coeffs.device
     n_seg = coeffs.shape[-3]
-    stepnum = torch.as_tensor(stepnum, device=dev).long()
+    stepnum = cuda_graph.as_tensor(stepnum, device=dev).long()
     counts = torch.clamp(stepnum - 1, min=0)
     starts = torch.cat([torch.zeros_like(counts[..., :1]),
                         torch.cumsum(counts, dim=-1)], dim=-1)

@@ -22,6 +22,8 @@ import math
 import numpy as np
 import torch
 
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
+
 _EPS = 1e-9
 # np.interp's zero-width-interval guard at float32 (jnp.interp)
 _INTERP_EPS = float(np.spacing(np.finfo(np.float32).eps))
@@ -151,8 +153,8 @@ def calc_vel_profile_brake_auto(kappa, el_lengths, loc_gg, v_start,
     (R, P), ``loc_gg`` (R, P, 2), ``v_start`` (R,) -> (R, P).  One
     MODE_BRAKE row each through :func:`stacked_vel_scan_auto` (the machine
     limit is inactive in brake mode; a constant table is supplied)."""
-    machines = torch.tensor([[0.0, 1.0], [1.0, 1.0]], dtype=kappa.dtype,
-                            device=kappa.device)
+    machines = cuda_graph.const_vector([0.0, 1.0, 1.0, 1.0], kappa.dtype,
+                                       kappa.device).reshape(2, 2)
     kabs = torch.abs(kappa)[:, :-1]
     ax = loc_gg[:, :-1, 0]
     ay = loc_gg[:, :-1, 1]
@@ -167,8 +169,7 @@ def calc_vel_profile_brake_auto(kappa, el_lengths, loc_gg, v_start,
 def _rows(x, lead, ref):
     """A scalar or leading-shaped argument as one value per flattened row
     (R,) on ``ref``'s dtype and device."""
-    return torch.broadcast_to(torch.as_tensor(x, dtype=ref.dtype,
-                                              device=ref.device),
+    return torch.broadcast_to(cuda_graph.as_tensor(x, ref.dtype, ref.device),
                               lead).reshape(-1)
 
 
@@ -200,7 +201,7 @@ def calc_vel_profile_fb(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
     idx = torch.arange(P, device=kappa.device)
     if v_end is not None:
         end = (torch.full((R,), P, device=kappa.device) if end_idx is None
-               else torch.broadcast_to(torch.as_tensor(
+               else torch.broadcast_to(cuda_graph.as_tensor(
                    end_idx, device=kappa.device), lead).reshape(-1))
         v0 = torch.where(idx >= end[:, None] - 1,
                          torch.minimum(v0, _rows(v_end, lead, kabs)[:, None]),

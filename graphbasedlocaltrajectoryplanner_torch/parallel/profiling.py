@@ -29,8 +29,12 @@ wrappers, so a CUDA-graph capture of a wrapper call sees none of them.
 
 :func:`stage_timings` times the cumulative stages through
 ``scenario._batched_window`` and the ``until="assembly"`` cutoff of
-``scenario.scenario_tick``; :func:`stage_timings_trace` gives every device
-kernel of the real tick to the innermost range that launched it.
+``scenario.scenario_tick``, each compiled on the card as the fleet tick is
+(``ops/cuda_graph.capture_on_card``: one CUDA graph a prefix), as the JAX
+package times jitted prefixes; :func:`stage_timings_trace` gives every
+device kernel of the real tick to the innermost range that launched it,
+and so runs the tick's eager body (``tick.__wrapped__``), whose ranges and
+launches a graph replay does not show.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from graphbasedlocaltrajectoryplanner_torch import resolve_device
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
 
 SCOPE_TO_STAGE = {
@@ -97,7 +102,10 @@ def stage_timings(lat, scen, iters: int = 10, kernels: bool = True,
                   p_max: int = None, *, device=None):
     """Time the three stages of the fleet tick (host clock, synchronised)
     and derive a roofline-style account, as the JAX package's
-    ``stage_timings``.
+    ``stage_timings``.  On the card with the kernels each timed prefix is
+    compiled (captured as a CUDA graph on its first call, replayed after),
+    as the JAX package jits them; on the CPU and with ``kernels=False``
+    they run eagerly.
 
     Stages (cumulative variants; deltas reported):
       1. ``window``   — obstacle selection, slab hit masks, the window DP
@@ -115,20 +123,22 @@ def stage_timings(lat, scen, iters: int = 10, kernels: bool = True,
         p_max = sc.default_p_max(lat)
     B = int(scen.start_layer.shape[0])
     zone = torch.zeros((lat.L, lat.N), dtype=torch.bool, device=dev)
-    w_last = torch.tensor([0.0, 0.5, 0.8], dtype=torch.float32, device=dev)
+    w_last = torch.tensor(sc.W_LAST_FACTORS, dtype=torch.float32, device=dev)
     packed = sc.pg.packed_edge_table(lat)
 
-    t_win, (obs, window) = _time(
-        lambda: sc._batched_window(lat, scen, zone, w_last, kernels=kernels),
-        iters=iters, dev=dev)
-    pre = dict(obs=obs, window=window)
+    def window(s):
+        return sc._batched_window(lat, s, zone, w_last, kernels=kernels)
 
-    def tick(until):
-        return sc.scenario_tick(lat, scen, p_max=p_max, precomputed=pre,
+    def tick(s, pre, until):
+        return sc.scenario_tick(lat, s, p_max=p_max, precomputed=pre,
                                 until=until, kernels=kernels, packed=packed)
 
-    t_asm, _ = _time(tick, "assembly", iters=iters, dev=dev)
-    t_full, _ = _time(tick, None, iters=iters, dev=dev)
+    window = cuda_graph.capture_on_card(window, dev, kernels)
+    tick = cuda_graph.capture_on_card(tick, dev, kernels)
+    t_win, (obs, win) = _time(window, scen, iters=iters, dev=dev)
+    pre = dict(obs=obs, window=win)
+    t_asm, _ = _time(tick, scen, pre, "assembly", iters=iters, dev=dev)
+    t_full, _ = _time(tick, scen, pre, None, iters=iters, dev=dev)
 
     ms = dict(window=t_win * 1e3, assembly=max(t_asm * 1e3, 0.0),
               velocity=max((t_full - t_asm) * 1e3, 0.0))
@@ -333,9 +343,12 @@ def stage_timings_trace(lat, scen, iters: int = 3, kernels: bool = True, *,
     under ``vp_backend="sqp"``, which warm-starts every traced tick from
     the profiles of the tick before, as a running fleet does).
 
-    One tick runs under the profiler before the ``iters`` ticks it
-    records (its first events would be lost to the profiler's start), and
-    every tick ends in a device synchronise.
+    The tick is the eager body of ``make_batched_tick`` (its
+    ``__wrapped__`` on the card, where the tick itself is a CUDA graph
+    whose replay shows neither the ranges nor the launch calls).  One tick
+    runs under the profiler before the ``iters`` ticks it records (its
+    first events would be lost to the profiler's start), and every tick
+    ends in a device synchronise.
 
     :param kw: further options of ``make_batched_tick`` (e.g. ``sqp_m``).
     :returns: dict(stage_ms, stage_share, total_ms, scopes, launches,
@@ -350,8 +363,8 @@ def stage_timings_trace(lat, scen, iters: int = 3, kernels: bool = True, *,
     lat, scen, dev = _setup(lat, scen, device)
     if dev.type != "cuda":
         return None
-    tick = sc.make_batched_tick(lat, kernels, device=dev,
-                                vp_backend=vp_backend, **kw)
+    tick = cuda_graph.eager(sc.make_batched_tick(
+        lat, kernels, device=dev, vp_backend=vp_backend, **kw))
     prof, wall_ms, plain = profiled_ticks(tick, scen, iters, dev,
                                           warm_sqp=vp_backend == "sqp",
                                           unprofiled=10)

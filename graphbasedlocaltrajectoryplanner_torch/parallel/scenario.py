@@ -30,6 +30,7 @@ from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
 from graphbasedlocaltrajectoryplanner_torch.ops import dynshift
 from graphbasedlocaltrajectoryplanner_torch.ops import projection as proj
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_backtrace
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.parallel import spatial
 from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
 from graphbasedlocaltrajectoryplanner_torch.planner import velplan as vp
@@ -43,6 +44,8 @@ C_PAD = 64
 N_LAST = 4
 # output action slots (emergency appended to the 4 search slots)
 N_OUT = 5
+# the previous-solution discount of w_last_edges (the reference's default)
+W_LAST_FACTORS = (0.0, 0.5, 0.8)
 
 
 @dataclasses.dataclass
@@ -253,6 +256,13 @@ def _batched_window(lat: Lattice, scen: Scenario, zone_block,
     return obs, window
 
 
+def default_machines(device) -> torch.Tensor:
+    """The default machine limit ``[[0, 5], [100, 5]]`` ([v, ax] rows),
+    built on ``device`` without a copy from the host."""
+    return cuda_graph.const_vector([0.0, 5.0, 100.0, 5.0], torch.float32,
+                                   device).reshape(2, 2)
+
+
 def default_p_max(lat: Lattice) -> int:
     """Path rows for H_max edges of S samples, padded to a multiple of 64."""
     return int(np.ceil((lat.H_max * (lat.S - 1) + 1) / 64.0) * 64)
@@ -320,10 +330,11 @@ def scenario_tick(lat: Lattice, scen: Scenario,
     the raw profiles for the next tick's warm start.
     """
     dev = lat.device
-    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa
+
+    def f32(x):
+        return cuda_graph.as_tensor(x, torch.float32, dev)
     if machines is None:
-        machines = torch.tensor([[0.0, 5.0], [100.0, 5.0]],
-                                dtype=torch.float32, device=dev)
+        machines = default_machines(dev)
     if p_max is None:
         p_max = default_p_max(lat)
     if precomputed is None:
@@ -331,8 +342,8 @@ def scenario_tick(lat: Lattice, scen: Scenario,
             zone_block = torch.zeros((lat.L, lat.N), dtype=torch.bool,
                                      device=dev)
         if w_last_factors is None:
-            w_last_factors = torch.tensor([0.0, 0.5, 0.8],
-                                          dtype=torch.float32, device=dev)
+            w_last_factors = cuda_graph.const_vector(
+                W_LAST_FACTORS, torch.float32, dev)
         obs, out = _batched_window(lat, scen, zone_block, w_last_factors,
                                    kernels=kernels)
     else:
@@ -521,8 +532,7 @@ def scenario_tick(lat: Lattice, scen: Scenario,
                     cost=cost_all, h_eff=h4.to(torch.int32), valid=valid4)
 
     # ---- velocity stage over the spliced paths -----------------------------
-    gg = torch.tensor(gg_lim, dtype=torch.float32, device=dev).expand(
-        P_full, 2)
+    gg = cuda_graph.const_vector(gg_lim, torch.float32, dev).expand(P_full, 2)
     c_obj_pos = torch.gather(scen.obj_pos, 1,
                              follow_obj_idx[:, None, None].expand(B, 1, 2))
     c_obj_pos = c_obj_pos[:, 0]
@@ -605,12 +615,25 @@ def make_batched_tick(lat: Lattice, kernels: bool = True, zone_block=None,
     takes the plain versions instead (the reference a kernel tick is held
     against on the same card).
 
+    On the card with the kernels the tick is compiled, as the JAX
+    package's ``jax.jit(tick)``: one CUDA graph per input signature
+    (``ops/cuda_graph.capture``; the shapes, dtypes and devices of the
+    scenario's fields and of tensor overrides, the values of the other
+    overrides), captured at its first call and replayed after, every call
+    returning fresh tensors.  ``tick.__wrapped__`` is the eager tick, which
+    runs the same body op by op (the tools that read ``gltpl.*`` ranges or
+    count the kernels' launches call it); ``tick.graphs`` holds the
+    captured signatures.  On the CPU, and with ``kernels=False`` (whose
+    plain velocity scan reads the host), the tick stays eager.
+
     :param zone_block: ``(L, N)`` shared zone mask or ``(B, L, N)`` per
         scenario (default: no zones).
     :param kw: options of :func:`scenario_tick` (``p_max``,
         ``incl_emergency``, ``until``, ``filt_window``, ``vp_backend="sqp"``
         and the SQP window parameters among them); ``tick(scen, **over)``
-        overrides them for one call, e.g. the warm start ``sqp_x0``.
+        overrides them for one call, e.g. the warm start ``sqp_x0``.  The
+        scalar options the kernels take as launch constants (``gg_lim``,
+        ``dyn_model_exp``, ``drag_coeff``, ``m_veh``) are Python numbers.
     """
     dev = resolve_device(device)
     if lat.device != dev:
@@ -620,7 +643,7 @@ def make_batched_tick(lat: Lattice, kernels: bool = True, zone_block=None,
                                  device=dev)
     zone_block = torch.as_tensor(zone_block, device=dev).to(torch.bool)
     if w_last_factors is None:
-        w_last_factors = [0.0, 0.5, 0.8]
+        w_last_factors = W_LAST_FACTORS
     w_last_factors = torch.as_tensor(w_last_factors, dtype=torch.float32,
                                      device=dev)
     packed = pg.packed_edge_table(lat)
@@ -633,7 +656,7 @@ def make_batched_tick(lat: Lattice, kernels: bool = True, zone_block=None,
                              w_last_factors=w_last_factors, kernels=kernels,
                              packed=packed, **{**kw, **over})
 
-    return tick
+    return cuda_graph.capture_on_card(tick, dev, kernels)
 
 
 def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
@@ -682,7 +705,7 @@ def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
         zone_block = zone_block[distributed.local_rows(
             zone_block.shape[0], mesh, spatial_axis)]
     if w_last_factors is None:
-        w_last_factors = [0.0, 0.5, 0.8]
+        w_last_factors = W_LAST_FACTORS
     w_last_factors = torch.as_tensor(w_last_factors, dtype=torch.float32,
                                      device=dev)
     packed = pg.packed_edge_table(lat)

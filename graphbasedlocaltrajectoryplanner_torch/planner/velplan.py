@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import dynshift
 from graphbasedlocaltrajectoryplanner_torch.ops import projection as proj
 from graphbasedlocaltrajectoryplanner_torch.ops import qp
@@ -128,7 +129,7 @@ def _sqp_m_window(cols, pref_idx, l_real, m: int):
     """
     idx_m = torch.arange(m, device=cols.device)
     win = dynshift.shift_rows_up(cols, pref_idx, 64)[..., :m, :]
-    l_real = torch.as_tensor(l_real, device=cols.device).long()
+    l_real = cuda_graph.as_tensor(l_real, device=cols.device).long()
 
     def row_at(j):
         j = torch.clamp(j, 0, m - 1)
@@ -182,8 +183,8 @@ def _sqp_profiles(win, v_max, v_start, x0v, machines, tire_end_idx,
     warm-start guess; ``tire_end_mps2`` a scalar or one per trailing row.
     Returns (vx (..., m), status (...,) int32)."""
     m = win.shape[-2]
-    f32 = lambda v: torch.as_tensor(v, dtype=win.dtype,      # noqa: E731
-                                    device=win.device)
+    def f32(v):
+        return cuda_graph.as_tensor(v, win.dtype, win.device)
     tire = f32(tire_end_mps2)
     in_tire = torch.arange(m, device=win.device) >= m - tire_end_idx
     gg = torch.where(in_tire[:, None], tire[..., None, None], win[..., 2:4])
@@ -279,7 +280,7 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
         r, T = per_step[0].shape[1:]
         per_step = [x.reshape(B * r, T) for x in per_step]
         v_init = torch.stack(cols[-1], dim=1).reshape(B * r)
-        mode = torch.tensor(modes, dtype=torch.int32, device=dev).repeat(B)
+        mode = cuda_graph.const_vector(modes, torch.int32, dev).repeat(B)
         return per_step, v_init, mode, r, T
 
     if const_gg is not None:
@@ -605,7 +606,7 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
         per_step = [torch.stack(c, dim=1).reshape(R * n, P - 1)
                     for c in cols[:-1]]
         v_init = torch.stack(cols[-1], dim=1).reshape(R * n)
-        mode = torch.tensor(modes, dtype=torch.int32, device=dev).repeat(R)
+        mode = cuda_graph.const_vector(modes, torch.int32, dev).repeat(R)
         out = velops.stacked_vel_scan_auto(
             *per_step[:8], v_init, mode, machines, dyn_model_exp, drag_coeff,
             m_veh, kernels=kernels)
@@ -852,7 +853,7 @@ def brake_em_sqp_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
     el = path[:, 4]
     m = P if sqp_m is None else min(sqp_m, P)
     cols = torch.stack([kappa, el, gg[:, 0], gg[:, 1]], dim=-1)
-    c_len = torch.as_tensor(c_len, device=dev).long()
+    c_len = cuda_graph.as_tensor(c_len, device=dev).long()
     win = _sqp_m_window(cols, c_len, n_valid - c_len, m)
     v_end = torch.sqrt(tire_end_mps2 * veh_turn)
     # linear vel_plan -> 1 m/s deceleration guess

@@ -177,9 +177,11 @@ def record_sqp_calls(cs):
     res = float(oval.sampled_resolution)
     scen = sc.random_scenarios(oval, cs.B, seed=0, n_objects=1,
                                device="cuda")
+    # the eager body: a graph replay passes no call through a recorder
     tick = sc.make_batched_tick(
         oval, device="cuda", vp_backend="sqp", sqp_m=115, sqp_step=res,
-        tire_end_idx=int(np.ceil(0.1 * 50 / res)), tire_end_mps2=10.0)
+        tire_end_idx=int(np.ceil(0.1 * 50 / res)),
+        tire_end_mps2=10.0).__wrapped__
     with cs.Recorder(target) as rec:
         tick(scen)
     calls = [("fleet call", rec.calls["admm_vel"][0][0][0],

@@ -7,12 +7,14 @@ comparing two checkouts of the repository on the same card, back to back.
 Imports the port from CHECKOUT (default: the checkout this file lies in),
 builds its kernels, runs ``make_batched_tick`` on the default oval with one
 opponent, and prints one line: the median and the quartiles of ``--ticks``
-synchronised ticks in ms, the card and its power limit.  With ``--facade``
-it times the interactive facade instead, as ``chip_smoke.py`` does: a
-100-tick real-clock drive on the default oval with a slower opponent and a
-zone, ``calc_paths`` + ``calc_vel_profile`` per tick, p50 and p99 over
-ticks 5-99 (its lattice cache under ``artifacts/fleet_tick_time/`` of
-CHECKOUT).  Run the checkouts in turns (A, B, B, A): both are bound by the
+synchronised ticks in ms, the card and its power limit.  The tick is what
+``make_batched_tick`` returns in that checkout: a CUDA graph a signature
+where the port compiles it, op by op in checkouts from before.  With
+``--facade`` it times the interactive facade instead, as ``chip_smoke.py``
+does: a 100-tick real-clock drive on the default oval with a slower
+opponent and a zone, ``calc_paths`` + ``calc_vel_profile`` per tick, p50
+and p99 over ticks 5-99 (its lattice cache under
+``artifacts/fleet_tick_time/`` of CHECKOUT).  Run the checkouts in turns (A, B, B, A): both are bound by the
 host, whose speed drifts.
 """
 

@@ -14,7 +14,9 @@ device ms, host ms and launches a tick of ``gltpl.backtrace``,
 ``gltpl.assemble`` and ``gltpl.const_splice``, their sum (the assembly
 stage), the rest of the cut tick, and the 10 most expensive device kernels
 of ``gltpl.assemble`` by name with their launches (none on the CPU, where
-no device is traced).
+no device is traced).  The split is per range and per launch, so it runs
+the eager body of the cut tick (``tick.__wrapped__`` on the card, where the
+tick is a CUDA graph whose replay shows neither).
 Writes ``<out>/ASSEMBLY_PROFILE_torch.json``.  Runs on the card unless
 ``--cpu`` is given.
 """
@@ -34,9 +36,11 @@ ASSEMBLY = ("gltpl.backtrace", "gltpl.assemble", "gltpl.const_splice")
 def split(lat, scen, dev, iters: int = 3) -> dict:
     """The assembly split of the ``until="assembly"`` tick (see the module
     docstring), figures per tick."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
     from graphbasedlocaltrajectoryplanner_torch.parallel import profiling
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
-    tick = sc.make_batched_tick(lat, device=dev, until="assembly")
+    tick = cuda_graph.eager(sc.make_batched_tick(lat, device=dev,
+                                                 until="assembly"))
     tick(scen)
     prof, wall_ms, _ = profiling.profiled_ticks(tick, scen, iters, dev)
     events = prof.events()

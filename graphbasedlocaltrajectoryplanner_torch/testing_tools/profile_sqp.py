@@ -11,11 +11,12 @@ Writes ``<out>/SQP_PROFILE_torch.json`` with
     share) and the sqp tick (the online INI's SQP window of 115 points,
     ``profile_stages.sqp_options``), each the mean of ``--iters`` ticks
     on the device clock (``profile_tick.time_ms``), and the sqp tick's
-    replans per second;
+    replans per second: the ticks ``make_batched_tick`` returns, compiled
+    on the card;
   * the warm sqp tick's device time by ``gltpl.*`` range and stage
     (``parallel/profiling.stage_timings_trace``, as
-    ``testing_tools/profile_stages.py --sqp``; None on the CPU, where no
-    device is traced);
+    ``testing_tools/profile_stages.py --sqp``, on the eager body; None on
+    the CPU, where no device is traced);
   * :func:`qp_micro`: the batched velocity QPs alone, ``ops/qp.qp_vel_profile``
     at the fleet shape (5 rows a scenario of ``--m`` points) at 60 and at 5
     ADMM iterations on the device clock, and from the two the time of one

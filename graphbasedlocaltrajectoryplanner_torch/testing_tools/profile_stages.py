@@ -14,6 +14,11 @@ with both results, the host cost of one range (``range_us``), the ticks'
 host times run in turns before the first profiler session and after the
 last (``tick_ms_before``, ``tick_ms_after``), the card's name and its power
 limit.  Needs a card.
+
+Its readings are per ``gltpl.*`` range, so it reads the eager tick
+(``tick.__wrapped__`` of ``make_batched_tick``, the body a CUDA-graph
+replay runs without ranges), and so do its host times;
+``stage_timings`` times the compiled prefixes.
 """
 
 from __future__ import annotations
@@ -80,10 +85,10 @@ def main():
                            md5_params="oval").to("cuda")
     scen = sc.random_scenarios(lat, args.batch, seed=0, n_objects=1,
                                device="cuda")
-    ticks = {"fb": sc.make_batched_tick(lat, device="cuda")}
+    ticks = {"fb": sc.make_batched_tick(lat, device="cuda").__wrapped__}
     if args.sqp:
         ticks["sqp"] = sc.make_batched_tick(lat, device="cuda",
-                                            **sqp_options(lat))
+                                            **sqp_options(lat)).__wrapped__
     rep = dict(card=card, device=torch.cuda.get_device_name(0),
                batch=args.batch, range_us=profiling.range_cost_us(),
                tick_ms_before=alternating_ms(ticks, scen),

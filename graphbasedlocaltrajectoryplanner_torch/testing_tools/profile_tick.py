@@ -11,10 +11,13 @@ option: ``"decide"`` (obstacle selection, window DP, the decision tree),
 ``"assembly"`` (+ walk, C2-refit assembly, const splice) and the full tick
 (+ velocity and emergency profiles), each the mean of ``--iters`` ticks
 between two CUDA events on the card (the host clock on the CPU), and
-derives the three stages from their differences.  Then writes a
-``torch.profiler`` Chrome trace of 3 ticks (CPU and device activity; the
-tick's ``gltpl.*`` ranges name its stages) to ``<out>/profile/<ts>/``, and
-the report to ``<out>/TICK_PROFILE_torch.json``.
+derives the three stages from their differences.  The timed ticks are
+what ``make_batched_tick`` returns: compiled on the card (one CUDA graph
+a prefix), eager on the CPU.  Then writes a ``torch.profiler`` Chrome
+trace of 3 ticks of the eager body (``tick.__wrapped__`` on the card; CPU
+and device activity, the tick's ``gltpl.*`` ranges naming its stages,
+which a graph replay does not show) to ``<out>/profile/<ts>/``, and the
+report to ``<out>/TICK_PROFILE_torch.json``.
 
 The lattice is the default oval (``--track oval``) or the one built from a
 track CSV; the batch holds seeded scenarios with one opponent each.  Runs
@@ -110,12 +113,13 @@ def prefix_timings(lat, scen, iters: int, dev: torch.device) -> dict:
 
 def write_trace(lat, scen, dev: torch.device, trace_dir: str,
                 iters: int = 3) -> dict:
-    """A Chrome trace of ``iters`` fb ticks (after one under the profiler's
-    schedule) in ``trace_dir``; returns its path and, on the card, its
-    device kernels a tick."""
+    """A Chrome trace of ``iters`` eager fb ticks (after one under the
+    profiler's schedule) in ``trace_dir``; returns its path and, on the
+    card, its device kernels a tick."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
     from graphbasedlocaltrajectoryplanner_torch.parallel import profiling
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
-    tick = sc.make_batched_tick(lat, device=dev)
+    tick = cuda_graph.eager(sc.make_batched_tick(lat, device=dev))
     tick(scen)
     prof, wall_ms, _ = profiling.profiled_ticks(tick, scen, iters, dev)
     os.makedirs(trace_dir, exist_ok=True)

@@ -120,7 +120,8 @@ def main():
                             md5_params="oval").to("cuda")
     scen = sc.random_scenarios(oval, cs.B, seed=0, n_objects=1,
                                device="cuda")
-    tick = sc.make_batched_tick(oval, device="cuda")
+    # the eager body: a graph replay passes no call through a recorder
+    tick = sc.make_batched_tick(oval, device="cuda").__wrapped__
     targets = {"vel_scan_cgg": (cuda_velocity, "vel_scan_cgg"),
                "vel_scan": (cuda_velocity, "vel_scan")}
     with cs.Recorder(targets) as rec:

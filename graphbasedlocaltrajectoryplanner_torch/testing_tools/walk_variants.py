@@ -165,8 +165,9 @@ def main():
             ("oval_3opp_o16", oval, dict(n_objects=3, o_pad=sc.O_PAD)),
             ("unclosed_monteblanco_1opp", mb, dict(n_objects=1))):
         scen = sc.random_scenarios(lat, cs.B, seed=0, device="cuda", **skw)
+        # the eager body: a graph replay passes no call through a recorder
         with cs.Recorder(target) as rec:
-            sc.make_batched_tick(lat, device="cuda")(scen)
+            sc.make_batched_tick(lat, device="cuda").__wrapped__(scen)
         walks += [(f"fleet {mix}", *c) for c in rec.calls["backtrace"]]
     walks += [("facade tick 15", *c) for c in vv.facade_calls(
         cs, target, ("backtrace",))["backtrace"]]

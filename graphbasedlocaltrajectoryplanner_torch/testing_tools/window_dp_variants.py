@@ -127,7 +127,8 @@ def main():
             ("oval_3opp_o16", oval, dict(n_objects=3, o_pad=sc.O_PAD)),
             ("unclosed_monteblanco_1opp", mb, dict(n_objects=1))):
         scen = sc.random_scenarios(lat, cs.B, seed=0, device="cuda", **skw)
-        tick = sc.make_batched_tick(lat, device="cuda")
+        # the eager body: a graph replay passes no call through a recorder
+        tick = sc.make_batched_tick(lat, device="cuda").__wrapped__
         with cs.Recorder(targets) as rec:
             tick(scen)
         torch.cuda.synchronize()
