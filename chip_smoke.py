@@ -44,9 +44,14 @@ unclosed Monteblanco lattice with the port's builder, then:
    stream through ``GraphLTPL(kernels=False)``: action sets and node
    chains equal on every tick, trajectories within 2 mm and 0.02 m/s,
    every kernel of the path launched; on two recorded ticks every kernel
-   call is held against its plain version;
+   call is held against its plain version.  On the card the facade runs
+   its device steps as captured calls (one CUDA graph per input
+   signature), whose replays run no Python: here and in 5-7, 9 and 11 the
+   facade drives whose launches are counted or whose kernel calls are
+   recorded run its eager calls (``cuda_graph.disabled()``), and 13 holds
+   the two equal;
 5. times the facade per tick (``calc_paths`` + ``calc_vel_profile``) on
-   the real clock;
+   the real clock, on its eager calls;
 6. the SQP velocity backend (``vp_type=sqp``): the ADMM kernel
    (``csrc/admm_vel.cu``: its warp design for n <= 128, its block design
    above, each line naming the one that ran) bit-equal to its plain
@@ -134,7 +139,20 @@ unclosed Monteblanco lattice with the port's builder, then:
    warm sqp tick, eager and compiled in turns (eager, compiled, compiled,
    eager; every window printed), each compiled tick's device kernels and
    busy share from a profiled replay (the fleet kernels among them), and
-   what each signature cost to capture (warm-up, capture, graph pool).
+   what each signature cost to capture (warm-up, capture, graph pool);
+13. the compiled facade (``GraphLTPL`` on the card, its device steps
+   captured by ``ops/cuda_graph.capture_on_card``) against the same
+   facade's eager calls (``cuda_graph.disabled()``) on the compiled drive's
+   inputs, ``np.array_equal`` on every tick's action keys, node chains and
+   trajectories: the oval (100 ticks, fb; the second half captures no new
+   signature), the oval under the SQP INI (40 ticks), unclosed Monteblanco
+   into its end (fb ladder from layer 26, SQP ladder from layer 30; every
+   ladder call on one signature); the signatures of each drive and what
+   each cost to capture (warm-up, capture, graph pool); on the oval, fb and
+   sqp, the latency per tick eager and compiled in turns on the real clock
+   (eager, compiled, compiled, eager; p50 and p99), and one eager and one
+   compiled tick under ``torch.profiler`` (device kernels, busy share, the
+   host's share of the tick).
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -147,6 +165,7 @@ non-zero exit; without a CUDA device it exits non-zero before printing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -689,14 +708,20 @@ def profile_device(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return _kernel_summary(prof)
 
+
+def _kernel_summary(prof):
+    """The device kernels of a finished ``torch.profiler`` run, as
+    :func:`profile_device` returns them."""
     def self_dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    # the profiler also draws a device span per gltpl.* range: not a kernel
+    # the profiler also draws a device span per gltpl.* range and per
+    # scheduled step (ProfilerStep#n): not kernels
     dev = [e for e in prof.key_averages()
            if str(e.device_type).endswith("CUDA") and self_dev_us(e) > 0
-           and not e.key.startswith("gltpl.")]
+           and not e.key.startswith(("gltpl.", "ProfilerStep"))]
     top = sorted(dev, key=self_dev_us, reverse=True)[:6]
     return dict(
         n=sum(e.count for e in dev),
@@ -753,12 +778,18 @@ class Recorder:
         return False
 
 
-def _run_counted(wrapper, fn):
+def _run_counted(wrapper, fn, eager=True):
     """``fn()`` with every kernel's launch count set to 0 just before it
-    and read just after (synchronised)."""
+    and read just after (synchronised), its compiled calls run eagerly
+    (``cuda_graph.disabled``: a replay runs no Python and counts nothing);
+    with ``eager=False`` they stay compiled, and the counts are those of
+    the captures' warm-ups and captures, which put each kernel into its
+    graph."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
     for _, path, *_ in KERNELS:
         wrapper(path).launches = 0
-    out = fn()
+    with (cuda_graph.disabled() if eager else contextlib.nullcontext()):
+        out = fn()
     torch.cuda.synchronize()
     return out, {name: wrapper(path).launches for name, path, *_ in KERNELS}
 
@@ -1668,6 +1699,227 @@ def compiled_tick_phase(card, oval, mb):
     return readings
 
 
+
+# phase 13: the compiled facade's drives, each held against the same
+# facade's eager calls on the compiled drive's inputs: (label, track, online
+# INI, start layer, ticks)
+ONLINE_INI = "params/ltpl_config_online.ini"
+COMPILED_FACADE_DRIVES = (
+    ("oval fb", "oval", ONLINE_INI, 0, FACADE_TICKS_OVAL),
+    ("oval sqp", "oval", SQP_INI, 0, SQP_TICKS_OVAL),
+    ("unclosed_monteblanco fb", UNCLOSED_CSV, ONLINE_INI,
+     FACADE_START_LAYER_UNCLOSED, FACADE_TICKS_UNCLOSED),
+    ("unclosed_monteblanco sqp", UNCLOSED_CSV, SQP_INI,
+     SQP_START_LAYER_UNCLOSED, SQP_TICKS_UNCLOSED),
+)
+# the oval drives' tick under the profiler (an opponent ahead, four actions
+# and the emergency profile)
+PROFILED_TICK = 15
+
+
+def _facade_pd(store, track, online):
+    name = "oval" if track == "oval" else "unclosed_monteblanco"
+    return {"globtraj_input_path": (track if track == "oval"
+                                    else os.path.join(ROOT, track)),
+            "graph_store_path": os.path.join(store, f"{name}.npz"),
+            "ltpl_offline_param_path": os.path.join(
+                ROOT, "params/ltpl_config_offline.ini"),
+            "ltpl_online_param_path": os.path.join(ROOT, online)}
+
+
+def _records_equal(label, rec_c, rec_e):
+    """Two drives over the same inputs: on every tick the action keys, the
+    node chains and every trajectory ``np.array_equal``."""
+    _check(len(rec_c) == len(rec_e),
+           f"{label}: {len(rec_c)} ticks against {len(rec_e)}")
+    for tick, (a, b) in enumerate(zip(rec_c, rec_e)):
+        _check(list(a["traj_set"]) == list(b["traj_set"]),
+               f"{label} tick {tick}: action sets {list(a['traj_set'])} "
+               f"against {list(b['traj_set'])}")
+        _check(a["nodes"] == b["nodes"], f"{label} tick {tick}: node chains")
+        for k, trajs in a["traj_set"].items():
+            for ta, tb in zip(trajs, b["traj_set"][k]):
+                _check(np.array_equal(ta, tb),
+                       f"{label} tick {tick} {k}: trajectories differ")
+
+
+def _count_calls(handler):
+    """Each compiled call of ``handler`` wrapped in a counter of its calls;
+    returns the counts by step."""
+    calls = dict.fromkeys(handler.steps, 0)
+    for name, f in list(handler.steps.items()):
+        def counted(*a, _f=f, _n=name, **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        counted.graphs = f.graphs
+        handler.steps[name] = counted
+    return calls
+
+
+def _step_costs(handler):
+    """Every captured signature's cost by step: warm-up ms / capture ms and
+    the graph pool."""
+    return "; ".join(
+        f"{name} x{len(f.graphs)}: " + ", ".join(
+            f"{c.warmup_ms:.1f}/{c.capture_ms:.1f} ms "
+            f"{c.pool_bytes / 2 ** 20:.1f} MiB" for c in f.graphs.values())
+        for name, f in handler.steps.items() if f.graphs)
+
+
+class _TickProfile:
+    """``on_tick`` of a drive that profiles tick ``k`` under
+    ``torch.profiler`` (from the end of tick k-1 to the end of tick k),
+    after tick k-1 as the profiler's warm-up step (without it the tracer
+    missed the first kernels of the tick); ``summary`` is
+    :func:`_kernel_summary` of tick k."""
+
+    def __init__(self, k):
+        self.k, self.prof, self.summary = k, None, None
+
+    def _ready(self, prof):
+        self.summary = _kernel_summary(prof)
+
+    def __call__(self, tick):
+        from torch.profiler import ProfilerActivity, profile, schedule
+        if tick == self.k - 2:
+            torch.cuda.synchronize()
+            self.prof = profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                on_trace_ready=self._ready)
+            self.prof.__enter__()
+        elif tick in (self.k - 1, self.k):
+            torch.cuda.synchronize()
+            self.prof.step()
+            if tick == self.k:
+                self.prof.__exit__(None, None, None)
+
+
+def compiled_facade_phase(card, store, wrapper):
+    """Phase 13 of the docstring."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
+    from graphbasedlocaltrajectoryplanner_torch.planner.facade import (
+        GraphLTPL)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        closed_loop as cl)
+    t_phase = time.perf_counter()
+    for label, track, online, layer, n in COMPILED_FACADE_DRIVES:
+        pd = _facade_pd(store, track, online)
+        ltpl_c = GraphLTPL(pd, device="cuda", log_to_file=False)
+        ltpl_c.graph_init()
+        ltpl_e = GraphLTPL(pd, device="cuda", log_to_file=False)
+        ltpl_e.graph_init()
+        h = ltpl_c._oth
+        _check(all(hasattr(f, "graphs") for f in h.steps.values()),
+               f"compiled facade {label}: GraphLTPL did not compile its "
+               f"steps")
+        calls = _count_calls(h)
+        pos, heading = cl.start_pose(h.np_refline, layer)
+        objs = zones = None
+        if track == "oval":
+            objs = cl.slow_opponent(h.np_raceline, h.np_normvec, h.np_s_rl)
+            zones = cl.left_half_zone(h.np_nodes_in_layer)
+        sigs = []
+        t0 = time.perf_counter()
+        rec_c, captured = _run_counted(wrapper, lambda: cl.drive(
+            ltpl_c, n, pos, heading, objs, zones,
+            on_tick=lambda t: sigs.append(h.signatures())), eager=False)
+        t_c = time.perf_counter() - t0
+        path_kernels = FACADE + (("admm_vel",) if "sqp" in label else ())
+        _check(all(captured[k] > 0 for k in path_kernels),
+               f"compiled facade {label}: a kernel of the path is in no "
+               f"captured graph: {captured}")
+        t0 = time.perf_counter()
+        with cuda_graph.disabled():
+            rec_e = cl.drive(ltpl_e, n, pos, heading, zones=zones,
+                             replay=rec_c)
+        torch.cuda.synchronize()
+        t_e = time.perf_counter() - t0
+        _records_equal(f"compiled facade {label}", rec_c, rec_e)
+        _check(ltpl_e._oth.signatures() == 0,
+               f"compiled facade {label}: the eager drive captured")
+        half = sigs[n // 2 - 1]
+        if label == "oval fb":
+            _check(half == sigs[-1], f"compiled facade {label}: the second "
+                   f"half captured {sigs[-1] - half} new signatures")
+        seen = sorted({k for r in rec_c for k in r["traj_set"]})
+        ladder = ("brake_fb" if "fb" in label else "brake_sqp")
+        if track != "oval":
+            _check(calls[ladder] >= 2 and len(h.steps[ladder].graphs) == 1,
+                   f"compiled facade {label}: ladder calls {calls[ladder]} "
+                   f"on {len(h.steps[ladder].graphs)} signatures")
+        print(f"compiled facade {label} {n} ticks (start layer {layer}) on "
+              f"{card}: action keys, node chains and trajectories "
+              f"np.array_equal to the eager calls' on every tick, actions "
+              f"{seen}; {sigs[-1]} signatures ({half} after tick "
+              f"{n // 2 - 1}) for calls "
+              f"{ {k: v for k, v in calls.items() if v} }, the kernels "
+              f"launched at their captures (warm-up and capture) "
+              f"{ {k: v for k, v in captured.items() if v} }; compiled drive "
+              f"{t_c:.1f} s, eager replay {t_e:.1f} s", flush=True)
+        print(f"compiled facade {label} signatures (warm-up/capture ms, "
+              f"graph pool): {_step_costs(h)}", flush=True)
+        if track != "oval":
+            del ltpl_c, ltpl_e, h
+            continue
+
+        # the readings: eager and compiled in turns on the real clock, the
+        # compiled calls those captured above
+        backend = label.split()[1]
+        windows = []
+        for mode in ("eager", "compiled", "compiled", "eager"):
+            timings, before = [], h.signatures()
+            with (cuda_graph.disabled() if mode == "eager"
+                  else contextlib.nullcontext()):
+                cl.drive(ltpl_c, n, pos, heading, objs, zones,
+                         fake_clock=False, timings=timings)
+            tt = np.asarray(timings[5:]) * 1e3
+            windows.append((mode, np.percentile(tt, 50),
+                            np.percentile(tt, 99), h.signatures() - before))
+        p = {m: (np.mean([w[1] for w in windows if w[0] == m]),
+                 np.mean([w[2] for w in windows if w[0] == m]))
+             for m in ("eager", "compiled")}
+        # one tick of each under the profiler, on the compiled drive's inputs
+        profs = {}
+        for mode in ("compiled", "eager"):
+            tp, timings = _TickProfile(PROFILED_TICK), []
+            with (cuda_graph.disabled() if mode == "eager"
+                  else contextlib.nullcontext()):
+                cl.drive(ltpl_c, PROFILED_TICK + 1, pos, heading,
+                         zones=zones, replay=rec_c, on_tick=tp,
+                         timings=timings)
+            profs[mode] = (tp.summary, timings[PROFILED_TICK] * 1e3)
+        print(f"compiled facade latency oval {backend} on {card}: ms a tick "
+              f"(calc_paths + calc_vel_profile, ticks 5-{n - 1}, real "
+              f"clock, in turns) "
+              + ", ".join(f"{m} p50 {a:.2f} p99 {b:.2f}"
+                          + (f" ({c} new signatures)" if c else "")
+                          for m, a, b, c in windows)
+              + f"; eager p50 {p['eager'][0]:.2f} p99 {p['eager'][1]:.2f}, "
+              f"compiled p50 {p['compiled'][0]:.2f} p99 "
+              f"{p['compiled'][1]:.2f} (eager / compiled p50 "
+              f"{p['eager'][0] / p['compiled'][0]:.2f})", flush=True)
+        for mode, (prof, tick_ms) in profs.items():
+            share = 100 * prof["busy_ms"] / tick_ms
+            p50 = p[mode][0]
+            busy = (f"{prof['n']} device kernels, device busy "
+                    f"{prof['busy_ms']:.3f} ms of the profiled tick's "
+                    f"{tick_ms:.2f} ms ({share:.1f} %; the host's share "
+                    f"{100 - share:.1f} %) and "
+                    f"{100 * prof['busy_ms'] / p50:.1f} % of the unprofiled "
+                    f"{mode} p50 {p50:.2f} ms; facade kernels "
+                    + ", ".join(f"{w} x{prof['count_of'](w)}"
+                                for w in REPLAY_WORDS)
+                    + "; top: " + "; ".join(prof["top"])
+                    if prof["n"] else
+                    "the profiler saw no device time (not measured)")
+            print(f"profile facade tick {PROFILED_TICK} oval {backend} "
+                  f"{mode} on {card}: {busy}", flush=True)
+        del ltpl_c, ltpl_e, h
+    torch.cuda.empty_cache()
+    print(f"compiled facade phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
 def main():
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1675,8 +1927,8 @@ def main():
     from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
     from graphbasedlocaltrajectoryplanner_torch.models import track as tt
     from graphbasedlocaltrajectoryplanner_torch.ops import (
-        cuda_admm, cuda_backtrace, cuda_build, cuda_collision, cuda_minplus,
-        cuda_velocity, cuda_window)
+        cuda_admm, cuda_backtrace, cuda_build, cuda_collision, cuda_graph,
+        cuda_minplus, cuda_velocity, cuda_window)
     from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
     from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
@@ -2031,7 +2283,10 @@ def main():
         def on_tick(tick, _r=recorder, _ticks=rec_ticks):
             _r.on = (tick + 1) in _ticks
         t0 = time.perf_counter()
-        with recorder:
+        # the facade's compiled calls run eagerly, so that the counters and
+        # the recorder see every kernel call (phase 13 holds the compiled
+        # calls against these)
+        with recorder, cuda_graph.disabled():
             rec_k = cl.drive(ltpl_k, n_ticks, pos, heading, objs, zones,
                              on_tick=on_tick)
         torch.cuda.synchronize()
@@ -2119,14 +2374,15 @@ def main():
     h = ltpl_t._oth
     pos, heading = cl.start_pose(h.np_refline)
     timings = []
-    cl.drive(ltpl_t, 100, pos, heading,
-             cl.slow_opponent(h.np_raceline, h.np_normvec, h.np_s_rl),
-             cl.left_half_zone(h.np_nodes_in_layer), fake_clock=False,
-             timings=timings)
+    with cuda_graph.disabled():         # the compiled facade's is phase 13's
+        cl.drive(ltpl_t, 100, pos, heading,
+                 cl.slow_opponent(h.np_raceline, h.np_normvec, h.np_s_rl),
+                 cl.left_half_zone(h.np_nodes_in_layer), fake_clock=False,
+                 timings=timings)
     tt = np.asarray(timings[5:]) * 1e3
     lat_p50, lat_p99 = np.percentile(tt, 50), np.percentile(tt, 99)
-    print(f"facade latency (oval, calc_paths + calc_vel_profile, ticks "
-          f"5-99) on {card}: p50 {lat_p50:.2f} ms p99 {lat_p99:.2f} ms max "
+    print(f"facade latency (oval, eager calls, calc_paths + "
+          f"calc_vel_profile, ticks 5-99) on {card}: p50 {lat_p50:.2f} ms p99 {lat_p99:.2f} ms max "
           f"{tt.max():.2f} ms (budget 100 ms)", flush=True)
     _check(lat_p99 < 1000.0, f"facade latency p99 {lat_p99} ms")
 
@@ -2244,7 +2500,7 @@ def main():
     def on_tick(tick, _r=fac_rec):
         _r.on = (tick + 1) == 15
     timings = []
-    with fac_rec:
+    with fac_rec, cuda_graph.disabled():
         rec_k = cl.drive(ltpl_k, SQP_TICKS_OVAL, pos, heading,
                          cl.slow_opponent(h.np_raceline, h.np_normvec,
                                           h.np_s_rl),
@@ -2309,7 +2565,7 @@ def main():
     try:
         pos, heading = cl.start_pose(ltpl_u._oth.np_refline,
                                      SQP_START_LAYER_UNCLOSED)
-        with lad_rec:
+        with lad_rec, cuda_graph.disabled():
             cl.drive(ltpl_u, SQP_TICKS_UNCLOSED, pos, heading)
         torch.cuda.synchronize()
     finally:
@@ -2332,7 +2588,8 @@ def main():
     t0 = time.perf_counter()
     for _, path, *_ in KERNELS:
         wrapper(path).launches = 0
-    rep, _ = replay(os.path.join(ROOT, REPLAY_FIXTURE), device="cuda")
+    with cuda_graph.disabled():
+        rep, _ = replay(os.path.join(ROOT, REPLAY_FIXTURE), device="cuda")
     replay_counts = {name: wrapper(path).launches
                      for name, path, *_ in KERNELS}
     _check(all(replay_counts[k] > 0 for k in FACADE),
@@ -2369,10 +2626,13 @@ def main():
 
     # ---- 15. the compiled tick against its eager body ---------------------
     compiled_tick_phase(card, oval, mb)
+
+    # ---- 16. the compiled facade against its eager calls -------------------
+    compiled_facade_phase(card, store, wrapper)
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all",
           flush=True)
 
-    # ---- 16. summary lines ------------------------------------------------
+    # ---- 17. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]

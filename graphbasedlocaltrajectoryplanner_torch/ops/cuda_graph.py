@@ -1,6 +1,7 @@
 """A function captured as CUDA graphs, one per input signature — the port's
 counterpart of ``jax.jit`` for the fleet tick (the JAX package's
-``make_batched_tick`` returns ``jax.jit(tick)``).
+``make_batched_tick`` returns ``jax.jit(tick)``) and for the device steps
+of the facade's online handler (``planner/handler.OnlineHandler.steps``).
 
 :func:`capture` turns ``fn(*args, **kwargs)`` into a callable of the same
 signature.  The signature of a call is the shape, dtype and device of every
@@ -32,11 +33,14 @@ replay that fails raises torch's error.
 builds a scalar without that copy.  The Python code of ``fn`` runs only at
 capture, so counters it keeps (the kernels' ``launches``) move at capture
 and not on replay; the eager function stays reachable as ``__wrapped__``
-(``functools.wraps``), as ``jax.jit(f).__wrapped__`` is ``f``.
+(``functools.wraps``), as ``jax.jit(f).__wrapped__`` is ``f``, and inside
+:func:`disabled` every captured callable runs it, as every jitted function
+runs op by op inside ``jax.disable_jit()``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -48,6 +52,22 @@ import torch
 # the CUDA runtime as the capture uses it (streams, graphs, the caching
 # allocator); the CPU tests put stand-ins here
 _cuda = torch.cuda
+# the depth of nested disabled() blocks
+_disabled = 0
+
+
+@contextlib.contextmanager
+def disabled():
+    """Inside the block every captured callable calls its eager function
+    and captures and replays nothing (the counterpart of
+    ``jax.disable_jit()``): the kernels' launch counters and a recorder of
+    their calls see every call, as they do on the CPU."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
 
 
 def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
@@ -164,12 +184,15 @@ def capture(fn, device=None):
     module docstring).  The static buffers live on ``device`` (default the
     current CUDA device); tensors given on another device are copied there.
     The callable's ``graphs`` maps each signature to its
-    :class:`CapturedCall`; ``__wrapped__`` is ``fn``."""
+    :class:`CapturedCall`; ``__wrapped__`` is ``fn``, which every call
+    inside :func:`disabled` runs instead."""
     device = torch.device("cuda" if device is None else device)
     graphs = {}
 
     @functools.wraps(fn)
     def captured(*args, **kwargs):
+        if _disabled:
+            return fn(*args, **kwargs)
         tensors = []
         spec = _flatten((args, dict(sorted(kwargs.items()))), tensors)
         call = graphs.get(spec)

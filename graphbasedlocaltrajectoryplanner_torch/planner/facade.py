@@ -6,8 +6,12 @@ calc_vel_profile() -> log() -> visual() ]``.
 
 The planner runs on ``device`` (default: the card; without one the
 constructor raises unless ``device="cpu"`` is given).  On the card every
-stage with a Pallas kernel in the JAX package goes through its CUDA kernel;
-``kernels=False`` takes the plain PyTorch versions on the same device.
+stage with a Pallas kernel in the JAX package goes through its CUDA kernel,
+and each device step of a tick runs as a captured call, one CUDA graph per
+input signature (``OnlineHandler.steps``, the counterparts of the JAX
+facade's jitted calls; ``ops.cuda_graph.disabled()`` runs them eagerly);
+``kernels=False`` takes the plain PyTorch versions on the same device,
+eagerly.
 With ``visual_mode`` the facade draws a live plot
 (``visualization/plot_handler.PlotHandler``, matplotlib) from host arrays.
 """

@@ -21,6 +21,14 @@ numeric work of a tick runs on the handler's device as a few batched calls:
 Under ``sqp`` the handler keeps the reference's cross-tick warm start: the
 previous solution per ``(plan, action)``, shifted by the distance travelled
 (VpSQP.py:297-340).
+
+Each of these device steps is one of the handler's compiled calls
+(``OnlineHandler.steps``), the counterparts of the JAX handler's jitted
+calls: on the card with the kernels each is captured as one CUDA graph per
+input signature (``ops/cuda_graph.capture_on_card``), on the CPU and on the
+plain path it runs eagerly.  Inside ``cuda_graph.disabled()`` every call
+runs eagerly on the card too, so the kernels' launch counters and a
+recorder of their calls see each of them.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import splines as spl
 from graphbasedlocaltrajectoryplanner_torch.planner import hostmath
 from graphbasedlocaltrajectoryplanner_torch.planner import objects as objmod
@@ -98,6 +107,7 @@ class OnlineHandler:
 
         # fixed path-array size: worst-case fused path + constant segment
         self.P = int(np.ceil((lt.H_max * (lt.S - 1) + 1 + 64) / 64.0) * 64)
+        self.steps = self._device_steps()
 
         # iterative memory (reinit_iterative_memory, OTH:161-179)
         self.calc_buffer = []
@@ -115,6 +125,94 @@ class OnlineHandler:
         """A host float array (or list of scalars) as one float32 tensor on
         the handler's device."""
         return torch.as_tensor(np.asarray(x, np.float32), device=self.dev)
+
+    def _ints(self, x):
+        """Host integers as one int64 tensor on the handler's device."""
+        return torch.as_tensor(np.asarray(x, np.int64), device=self.dev)
+
+    def _device_steps(self) -> dict:
+        """The device steps of a tick, by name, each the counterpart of a
+        ``jax.jit`` of the JAX handler: ``plan`` (``plan_window_kernel``
+        and ``feasibility_vectors``), ``walk`` (``backtrace_slot``),
+        ``assemble`` (``assemble_action_kernel``), ``opponent``
+        (``opponent_summary``), ``velocity`` (``velocity_kernel``),
+        ``brake_fb`` / ``brake_sqp`` (``brake_on_backup_kernel`` /
+        ``brake_em_sqp_kernel``) and ``emergency`` (``emergency_kernel``).
+
+        Each closes over what the JAX call takes as a pytree or a static
+        argument (the lattice, the packed edge table, ``P``, the config's
+        and the vehicle's constants), so that only its tensors and the
+        ``slot_range`` of a walk (two of the slots 0-3) make its signature;
+        every value that changes from tick to tick enters as a tensor.
+        Each looks its function up at the call, so a wrapper put in the
+        function's place later is the one called."""
+        lat, kernels, cfg = self.lat, self.kernels, self.cfg
+        dyn = (self.dyn_model_exp, self.drag_coeff, self.m_veh)
+        sqp_m = int(cfg.nmbr_export_points)
+
+        def plan(ints, zone_mask, opos, orad, oact, found, w_fac):
+            out = pg.plan_window_kernel(
+                lat, ints[0:1], ints[1:2], zone_mask, opos, orad, oact,
+                ints[2:3], ints[3:4], found, ints[4:][None], w_fac,
+                kernels=kernels)
+            return out, pg.feasibility_vectors(out["best"], out["vg"])[0]
+
+        def walk(best, bp, vg, h_effs, slots, slot_range):
+            return pg.backtrace_slot(best, bp, vg, h_effs, kernels=kernels,
+                                     slot=slots, slot_range=slot_range)
+
+        def assemble(win_layers, nodes, h_effs, psi_s):
+            return pg.assemble_action_kernel(
+                lat, win_layers.expand(nodes.shape[0], -1), nodes, h_effs,
+                psi_s, p_max=self.P, packed=self.packed)
+
+        def opponent(pos, vel):
+            stop_dist, roll_vel, _, roll_cum = vp.opponent_summary(
+                lat.glob_rl, lat.glob_el, pos, vel, *dyn, kernels=kernels)
+            return stop_dist[0], roll_vel[0], roll_cum[0]
+
+        def velocity(path, gg, vc_pad, ints, shared, rows, machines, opp,
+                     sqp_in):
+            # ints [c_len, n_valid per action]; shared the tick's scalars
+            # (see calc_vel_profile); rows one action a row [red_len,
+            # v_end_rl, obj_dist, v_obj, is_follow]
+            sqp_kw = {}
+            if sqp_in is not None:
+                sqp_kw = dict(sqp_in, vp_backend="sqp",
+                              tire_end_idx=self._tire_end_idx(), sqp_m=sqp_m,
+                              sqp_step=float(lat.sampled_resolution))
+            s = shared.unbind()
+            return vp.velocity_kernel(
+                path, ints[1:], gg, vc_pad, ints[0], s[0], s[1], s[2], s[3],
+                s[4], machines, s[5], rows[:, 4] > 0.5, rows[:, 0] > 0.5,
+                rows[:, 1], rows[:, 2], rows[:, 3], s[6], *opp, s[7], s[8],
+                s[9], s[10], s[11], *dyn, control_type=cfg.controller_type,
+                filt_window=cfg.filt_window_width, kernels=kernels, **sqp_kw)
+
+        def brake_fb(path, gg, vc_pad, ints, vel_plan):
+            # ints [n_valid, c_len]
+            return vp.brake_on_backup_kernel(path, ints[0], gg, vc_pad,
+                                             ints[1], vel_plan, *dyn,
+                                             kernels=kernels)
+
+        def brake_sqp(path, gg, vc_pad, ints, vel_plan, machines, veh_turn,
+                      tire_end_mps2):
+            return vp.brake_em_sqp_kernel(
+                path, ints[0], gg, vc_pad, ints[1], vel_plan, machines,
+                veh_turn, tire_end_mps2, self.drag_coeff, self.m_veh,
+                sqp_m=sqp_m, kernels=kernels)
+
+        def emergency(traj, gg):
+            return vp.emergency_kernel(traj[None], gg, kernels=kernels)[0]
+
+        return {fn.__name__: cuda_graph.capture_on_card(fn, self.dev, kernels)
+                for fn in (plan, walk, assemble, opponent, velocity, brake_fb,
+                           brake_sqp, emergency)}
+
+    def signatures(self) -> int:
+        """The input signatures the compiled calls have captured so far (0
+        where they run eagerly)."""
+        return sum(len(getattr(f, "graphs", ())) for f in self.steps.values())
 
     # ------------------------------------------------------------------
     def reinit_iterative_memory(self):
@@ -425,17 +523,15 @@ class OnlineHandler:
         obs_layer = closest_obj_node[0] if closest_obj_node else 0
         obs_node = closest_obj_node[1] if closest_obj_node else 0
         # one scenario: the scenario tensors carry a leading 1
-        ints = torch.as_tensor(np.concatenate(
-            [[start_layer, start_node_id, obs_layer, obs_node], last_win]
-        ).astype(np.int64), device=dev)
-        out = pg.plan_window_kernel(
-            lat, ints[0:1], ints[1:2],
+        out, feas = self.steps["plan"](
+            self._ints(np.concatenate(
+                [[start_layer, start_node_id, obs_layer, obs_node],
+                 last_win])),
             torch.as_tensor(zone_mask, device=dev), self._f32(opos)[None],
             self._f32(orad)[None], torch.as_tensor(oact, device=dev)[None],
-            ints[2:3], ints[3:4],
             torch.tensor([closest_obj_node is not None], device=dev),
-            ints[4:][None], self._f32(w_fac), kernels=self.kernels)
-        feas = _np(pg.feasibility_vectors(out["best"], out["vg"])[0])
+            self._f32(w_fac))
+        feas = _np(feas)
 
         # ---- object vs constant path segment (main_online_path_gen:76-122)
         obj_in_const_path = False
@@ -544,10 +640,9 @@ class OnlineHandler:
                            [s[2] for s in selected]])
         sel = torch.as_tensor(sel_np, device=dev)
         slots, h_effs = sel[0], sel[1]
-        nodes_all, _cost = pg.backtrace_slot(
-            out["best"], out["bp"], out["vg"], h_effs, kernels=self.kernels,
-            slot=slots, slot_range=(int(sel_np[0].min()),
-                                    int(sel_np[0].max())))
+        nodes_all, _cost = self.steps["walk"](
+            out["best"], out["bp"], out["vg"], h_effs, slots,
+            (int(sel_np[0].min()), int(sel_np[0].max())))
         nodes_np = _np(nodes_all)
         win = (start_layer + np.arange(lat.H_max + 1)) % lat.L
 
@@ -561,10 +656,8 @@ class OnlineHandler:
                     start_layer, int(nodes_np[r, 0]), int(nodes_np[r, 1])))
 
         # ---- one assembly over every selected action ----------------------
-        R = len(selected)
-        res = pg.assemble_action_kernel(
-            lat, out["win_layers"].expand(R, -1), nodes_all, h_effs,
-            self._f32(psi_s), p_max=self.P, packed=self.packed)
+        res = self.steps["assemble"](out["win_layers"], nodes_all, h_effs,
+                                     self._f32(psi_s))
         paths = _np(res["path"])
         n_valids = _np(res["n_valid"])
         node_idxs = _np(res["node_idx"])
@@ -685,6 +778,21 @@ class OnlineHandler:
         self.sqp_tire = (self._tire_end_idx(), tire_end_mps2)
         return key, np.asarray(x0, np.float32), tire_end_mps2
 
+    def _backup_brake(self, path_pad, gg_pad, vc_pad, nb, c_len, vel_plan,
+                      machines, tire_end_mps2):
+        """The ladder's brake profile (P, 7) on the padded backup path of
+        ``nb`` points after the ``c_len`` points of the committed course:
+        the fb brake profile, or under sqp the reference's QP brake with a
+        1 m/s cap (VpSQP.calc_vel_brake_em).  ``nb`` and ``c_len`` enter
+        as tensors, as the JAX handler's traced arguments."""
+        args = (self._f32(path_pad), self._f32(gg_pad), self._f32(vc_pad),
+                self._ints([nb, c_len]), self._f32(vel_plan))
+        if self.vp_backend == "sqp":
+            return self.steps["brake_sqp"](*args, machines,
+                                           self._f32(self.lat.veh_turn),
+                                           self._f32(tire_end_mps2))
+        return self.steps["brake_fb"](*args)
+
     def calc_vel_profile(self, cut_index_pos, cut_layer, vel_plan, acc_plan,
                          vel_course, vel_est, vel_max, ax_max_machines,
                          safety_d, gg_scale, local_gg=(5.0, 5.0),
@@ -729,18 +837,14 @@ class OnlineHandler:
         follow_needed = "follow" in self.last_path_param and self.obj_veh
         if follow_needed and self.closest_obj_index is not None:
             c_obj = self.obj_veh[self.closest_obj_index]
-            opp_stop_dist, roll_vel, _, roll_cum = vp.opponent_summary(
-                lat.glob_rl, lat.glob_el, self._f32(c_obj.pos)[None],
-                self._f32([c_obj.vel]), self.dyn_model_exp, self.drag_coeff,
-                self.m_veh, kernels=self.kernels)
-            opp_stop_dist, roll_vel, roll_cum = \
-                opp_stop_dist[0], roll_vel[0], roll_cum[0]
+            opp = self.steps["opponent"](self._f32(c_obj.pos)[None],
+                                         self._f32([c_obj.vel]))
         else:
-            opp_stop_dist = self._f32(0.0)
-            roll_vel = torch.zeros((vp.F_CAP,), dtype=torch.float32,
-                                   device=self.dev)
-            roll_cum = torch.ones((vp.F_CAP,), dtype=torch.float32,
-                                  device=self.dev)
+            opp = (self._f32(0.0),
+                   torch.zeros((vp.F_CAP,), dtype=torch.float32,
+                               device=self.dev),
+                   torch.ones((vp.F_CAP,), dtype=torch.float32,
+                              device=self.dev))
 
         prefix_became_inactive = vel_plan <= (vel_max + 0.1)
 
@@ -830,34 +934,20 @@ class OnlineHandler:
                                 safety_d, lat.veh_length, ctrl["c_p"],
                                 ctrl["k_d"], ctrl["k_p"],
                                 ctrl.get("tan_w", 1.0)])
-            rows = self._f32([j[6] for j in jobs])
-            ints = torch.as_tensor(np.array([c_len] + [j[2] for j in jobs],
-                                            np.int64), device=self.dev)
-            sqp_kw = {}
+            sqp_in = None
             if sqp:
-                sqp_kw = dict(
-                    vp_backend="sqp",
+                sqp_in = dict(
                     sqp_x0=self._f32(np.stack([j[7][1] for j in jobs])),
                     is_overtake=torch.as_tensor(
                         [j[0] in ("left", "right") for j in jobs],
                         device=self.dev),
                     veh_turn=self._f32(lat.veh_turn),
-                    tire_end_idx=self._tire_end_idx(),
-                    tire_end_mps2=self._f32([j[7][2] for j in jobs]),
-                    sqp_m=int(cfg.nmbr_export_points),
-                    sqp_step=float(lat.sampled_resolution))
-            out = vp.velocity_kernel(
-                self._f32(np.stack([j[4] for j in jobs])), ints[1:],
+                    tire_end_mps2=self._f32([j[7][2] for j in jobs]))
+            out = self.steps["velocity"](
+                self._f32(np.stack([j[4] for j in jobs])),
                 self._f32(np.stack([j[5] for j in jobs])), self._f32(vc_pad),
-                ints[0], shared[0], shared[1], shared[2], shared[3],
-                shared[4], machines, shared[5], rows[:, 4] > 0.5,
-                rows[:, 0] > 0.5, rows[:, 1], rows[:, 2], rows[:, 3],
-                shared[6], opp_stop_dist, roll_vel, roll_cum, shared[7],
-                shared[8], shared[9], shared[10], shared[11],
-                self.dyn_model_exp, self.drag_coeff, self.m_veh,
-                control_type=cfg.controller_type,
-                filt_window=cfg.filt_window_width, kernels=self.kernels,
-                **sqp_kw)
+                self._ints([c_len] + [j[2] for j in jobs]), shared,
+                self._f32([j[6] for j in jobs]), machines, opp, sqp_in)
             trajs = _np(out["traj"])
             vel_bounds = _np(out["vel_bound"])
             too_close = _np(out["too_close"])
@@ -911,22 +1001,9 @@ class OnlineHandler:
                     path_pad = self._pad_path(bpp)
                     gg_pad = np.ones((self.P, 2), np.float32) * 5.0
                     gg_pad[:nb] = bgg
-                    if sqp:
-                        # the reference's SQP ladder brakes through the QP
-                        # with a 1 m/s cap (VpSQP.calc_vel_brake_em)
-                        traj = vp.brake_em_sqp_kernel(
-                            self._f32(path_pad), nb, self._f32(gg_pad),
-                            self._f32(vc_pad), c_len, self._f32(vel_plan),
-                            machines, self._f32(lat.veh_turn),
-                            self._f32(sqp_job[2]), self.drag_coeff,
-                            self.m_veh, sqp_m=int(cfg.nmbr_export_points),
-                            kernels=self.kernels)
-                    else:
-                        traj = vp.brake_on_backup_kernel(
-                            self._f32(path_pad), nb, self._f32(gg_pad),
-                            self._f32(vc_pad), c_len, self._f32(vel_plan),
-                            self.dyn_model_exp, self.drag_coeff, self.m_veh,
-                            kernels=self.kernels)
+                    traj = self._backup_brake(
+                        path_pad, gg_pad, vc_pad, nb, c_len, vel_plan,
+                        machines, sqp_job[2] if sqp else None)
                     new_bp[action_id][i] = _np(traj)[:nb]
             else:
                 LOG.warning("Removed action set, since vel constraints "
@@ -967,9 +1044,8 @@ class OnlineHandler:
             if g is not None:
                 gseg = g[0][cut_index_pos:, :]
                 gg_pad[:gseg.shape[0]] = gseg
-            em = _np(vp.emergency_kernel(self._f32(traj_pad)[None],
-                                         self._f32(gg_pad),
-                                         kernels=self.kernels)[0])[:nb]
+            em = _np(self.steps["emergency"](self._f32(traj_pad),
+                                             self._f32(gg_pad)))[:nb]
             new_bp["emergency"] = [em]
             action_set_path_id["emergency"] = action_set_path_id[self.em_base_id]
 
