@@ -110,8 +110,8 @@ unclosed Monteblanco lattice with the port's builder, then:
    statistics equal, the gathered results against the unsharded tick and
    the spatial tables against ``plan_window_kernel``; the spatial path's
    ``hit_slab`` and ``minplus`` calls, recorded by rank 0, held against
-   their plain versions and timed here; per part the ms of a tick a rank
-   and the share of it in collectives;
+   their plain versions and timed here; per part the ms of an eager tick
+   a rank and the share of it in collectives;
 11. the entry tools: ``entry()``'s fleet tick (the small oval, B=8) on the
    card, made by ``entry._entry_on`` once with the kernels and once with
    the plain versions over one lattice and the same scenarios (``valid``
@@ -152,7 +152,30 @@ unclosed Monteblanco lattice with the port's builder, then:
    sqp, the latency per tick eager and compiled in turns on the real clock
    (eager, compiled, compiled, eager; p50 and p99), and one eager and one
    compiled tick under ``torch.profiler`` (device kernels, busy share, the
-   host's share of the tick).
+   host's share of the tick);
+14. the compiled sharded tick and the compiled dense window:
+   (a) NCCL at world 1 in this process, ``make_sharded_tick`` on the card
+   compiled as one CUDA graph per signature holding its collectives — the
+   data-parallel tick, the spatial tick on a ``(dp=1, mp=1)`` mesh and
+   the data-parallel tick under per-scenario zones at batch 1024 on the
+   default oval — each against its eager tick (``tick.__wrapped__``),
+   ``torch.equal`` on every field and both statistics, on the capture's
+   batch and on a batch made after the capture, tick n's outputs
+   unchanged by tick n+1; the dp and spatial ticks eager and compiled in
+   turns, a replay's device kernels, copies and NCCL kernels under
+   ``torch.profiler`` (NCCL at world 1 launches no kernel for the tick's
+   in-place reductions), its host-side collective calls (none) against
+   the eager tick's, what each signature cost to capture; (b) phase 10's
+   four gloo ranks: each rank's staged compiled ``dp=4``, ``(dp=2, mp=2)``
+   and spatial ``mp=4`` ticks held against their eager ticks on the rank,
+   ``torch.equal``, their ms eager and compiled, collective shares and
+   graph pools; (c) ``plan_window_dense`` at batch 1024, compiled
+   (captured as in 3, which freed its graph) against eager,
+   ``torch.equal`` on ``best``, ``bp``, ``vg``, ``win_layers``,
+   ``blocked`` and ``w_all``, timed in turns.
+   Phases 3, 10 and 11 count launches on the eager bodies and read the
+   eager sharded ticks' times; the ranks of 10 and 11 run the compiled
+   ticks too.
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -1287,12 +1310,10 @@ def multi_device_phase(card, wrapper, oval, mb):
     _check(got == host and got == (float(st_p["fleet_min_cost"]),
                                    int(st_p["fleet_actions"])),
            f"sharded tick nccl: stats {got}, host reduction {host}")
-    ms = _ms(lambda: tick_k(local))
-    mesh.timed, mesh.collective_s = True, 0.0
-    t1 = time.perf_counter()
-    tick_k(local)
-    torch.cuda.synchronize()
-    share = mesh.collective_s / (time.perf_counter() - t1)
+    # the eager tick's time and collective share (the compiled tick's
+    # are phase 14's)
+    ms = _ms(lambda: tick_k.__wrapped__(local))
+    share = tdist.collective_share(tick_k.__wrapped__, (local,))["share"]
     dist.destroy_process_group()
     print(f"multi-device nccl world 1: make_sharded_tick oval_1opp B={B} on "
           f"{card}: kernel launches "
@@ -1300,8 +1321,8 @@ def multi_device_phase(card, wrapper, oval, mb):
           f"plain fields equal, max|d pos|={d_pos:.3g} m max|d vx|="
           f"{d_vx:.3g} m/s; every field equal to make_batched_tick; stats "
           f"fleet_min_cost={got[0]} fleet_actions={got[1]} from an NCCL "
-          f"all_reduce, equal to the host's reduction; {ms:.2f} ms a tick "
-          f"a rank, {100 * share:.2f} % of a tick in collectives "
+          f"all_reduce, equal to the host's reduction; eager {ms:.2f} ms a "
+          f"tick a rank, {100 * share:.2f} % of a tick in collectives "
           f"({mesh.n_collectives} collectives); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -1356,16 +1377,19 @@ def multi_device_phase(card, wrapper, oval, mb):
         spatial_stats[name] = r
     part = {"a": "dp=4 tick oval_1opp", "b": "(dp=2, mp=2) tick oval_1opp",
             "c": "spatial_window_dp mp=4 unclosed_monteblanco"}
+    # the eager ticks' readings (the compiled ticks' are phase 14's)
     for case in ("a", "b", "c"):
         rs = [r[case] if case != "c" else r[case]["mb"] for r in reports]
+        ms, sh = ("ms", "collective_share") if case == "c" else (
+            "eager_ms", "eager_collective_share")
         print(f"multi-device gloo 4 ranks on one card, {part[case]} "
               f"(B={B if case != 'c' else dc.SIZES['chip']['n_spatial']} in "
-              f"all) on {card}: "
-              f"{max(x['ms'] for x in rs):.2f} ms a tick a rank (ranks "
-              f"{[round(x['ms'], 2) for x in rs]}), "
-              f"{100 * max(x['collective_share'] for x in rs):.2f} % of a "
+              f"all) on {card}: eager "
+              f"{max(x[ms] for x in rs):.2f} ms a tick a rank (ranks "
+              f"{[round(x[ms], 2) for x in rs]}), "
+              f"{100 * max(x[sh] for x in rs):.2f} % of a "
               f"tick in collectives (ranks "
-              f"{[round(100 * x['collective_share'], 2) for x in rs]} %); "
+              f"{[round(100 * x[sh], 2) for x in rs]} %); "
               f"launches a rank {rank_counts[case]}", flush=True)
     print(f"multi-device gloo 4 ranks: every rank's stats equal (a "
           f"{reports[0]['a']['stats']}, b {reports[0]['b']['stats']}); a "
@@ -1378,7 +1402,8 @@ def multi_device_phase(card, wrapper, oval, mb):
           f"{secs:.1f} s", flush=True)
     print(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return dict(nccl=nccl_counts, rank=rank_counts, spatial=spatial_stats)
+    return dict(nccl=nccl_counts, rank=rank_counts, spatial=spatial_stats,
+                reports=reports)
 
 
 # phase 11: validate_tracks' ticks on the real clock, and those held
@@ -1920,6 +1945,195 @@ def compiled_facade_phase(card, store, wrapper):
     print(f"compiled facade phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
+# phase 14: the device-name words of the kernels a replay of a compiled
+# sharded tick runs, by kernel
+SHARDED_WORDS = dict(hit_slab="hit_slab", window_dp="window_dp",
+                     backtrace="walk_kernel",
+                     vel_scan_cgg="vel_scan_kernel<true",
+                     vel_scan="vel_scan_kernel<false",
+                     minplus="minplus_kernel", admm_vel="admm_vel")
+
+
+def _same_sharded(label, got, ref):
+    """A compiled sharded tick's ``(results, stats)`` against the eager
+    tick's, each field ``torch.equal``."""
+    _same(label, got[0], ref[0])
+    _same(f"{label} (stats)", got[1], ref[1])
+
+
+def _host_collectives(fn):
+    """``fn()`` under ``torch.profiler``: the host-side NCCL collective
+    calls (c10d's ``nccl:*`` ranges) it made."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("nccl:"))
+
+
+def compiled_sharded_phase(card, oval, win_args, md):
+    """Phase 14 of the docstring.  Returns each kernel's launches in one
+    replay of the compiled sharded tick (data-parallel and spatial)."""
+    import torch.distributed as dist
+    from graphbasedlocaltrajectoryplanner_torch.parallel import (
+        distributed as tdist)
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        dist_cases as dc)
+    t_phase = time.perf_counter()
+    versions = (f"torch {torch.__version__}, NCCL "
+                f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+
+    # (a) NCCL at world 1 in this process: the whole tick one CUDA graph
+    tdist.init_distributed(
+        coordinator_address=f"localhost:{tdist.free_port()}",
+        num_processes=1, process_id=0, backend="nccl", device="cuda")
+    scen = sc.random_scenarios(oval, B, seed=dc.SEED_DP, n_objects=1,
+                               device="cuda")
+    fresh = sc.random_scenarios(oval, B, seed=12, n_objects=1,
+                                device="cuda")
+    replay_launches = {}
+    for label, shape, names, spatial, zb in (
+            ("dp", (1,), ("dp",), None, None),
+            ("spatial (dp=1, mp=1)", (1, 1), ("dp", "mp"), "mp", None),
+            ("dp per-scenario zones", (1,), ("dp",), None,
+             dc.zone_case(oval, scen))):
+        mesh = tdist.DistMesh(shape, names)
+        tick = sc.make_sharded_tick(oval, mesh, spatial_axis=spatial,
+                                    zone_block=zb)
+        _check(getattr(tick, "form", None) == "graph",
+               f"compiled sharded {label}: not one CUDA graph on NCCL")
+        eager = tick.__wrapped__
+        local = tdist.shard_scenarios(scen, mesh, spatial)
+        local_f = tdist.shard_scenarios(fresh, mesh, spatial)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tick(local)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        n_coll = mesh.n_collectives
+        _same_sharded(f"compiled sharded {label}", out, eager(local))
+        kept = {k: v.clone() for k, v in out[0].items()}
+        out_f = tick(local_f)
+        _same_sharded(f"compiled sharded {label} batch made after the "
+                      "capture", out_f, eager(local_f))
+        _check(not torch.equal(out_f[0]["trajs"], kept["trajs"]),
+               f"compiled sharded {label}: the second batch returned the "
+               "first's")
+        for k, v in kept.items():
+            _check(torch.equal(out[0][k], v),
+                   f"compiled sharded {label}: tick n's {k} changed in "
+                   "tick n+1")
+        _check(len(tick.graphs) == 1, f"compiled sharded {label}: "
+               f"{len(tick.graphs)} signatures captured")
+        print(f"compiled sharded tick nccl world 1 {label} oval_1opp B={B} "
+              f"on {card} ({versions}): one CUDA graph holding the tick and "
+              f"its {n_coll} collectives (counted at its warm-up and "
+              f"capture); every field and both statistics torch.equal to "
+              f"the eager tick's on the capture's batch and on a batch made "
+              f"after the capture; tick n's outputs unchanged by tick n+1; "
+              f"first call {first_ms:.1f} ms ({_capture_cost(tick)})",
+              flush=True)
+        if zb is not None:
+            continue
+        # eager and compiled in turns, a replay's device kernels, the
+        # collectives' host calls and device time
+        eager(local)
+        windows = [(name, _tick_ms(lambda: f(local), PAIRED_TICKS))
+                   for name, f in (("eager", eager), ("compiled", tick),
+                                   ("compiled", tick), ("eager", eager))]
+        e_ms = (windows[0][1] + windows[3][1]) / 2
+        c_ms = (windows[1][1] + windows[2][1]) / 2
+        prof = profile_device(lambda: tick(local))
+        host_e = _host_collectives(lambda: eager(local))
+        host_c = _host_collectives(lambda: tick(local))
+        _check(host_c == 0, f"compiled sharded {label}: a replay made "
+               f"{host_c} host collective calls")
+        share = tdist.collective_share(tick, (local,), c_ms)
+        replay_launches[label] = {k: prof["count_of"](w)
+                                  for k, w in SHARDED_WORDS.items()}
+        copies = prof["count_of"]("Memcpy") + prof["count_of"]("memcpy")
+        print(f"compiled sharded tick nccl world 1 {label} on {card}: host "
+              f"ms a tick (median of {PAIRED_TICKS} synchronised ticks a "
+              f"window, in turns) "
+              + ", ".join(f"{n} {t:.3f}" for n, t in windows)
+              + f"; eager {e_ms:.3f} ms, compiled {c_ms:.3f} ms (eager / "
+              f"compiled {e_ms / c_ms:.2f}); a replay: {prof['n']} device "
+              f"kernels and copies, busy {prof['busy_ms']:.3f} ms "
+              f"({100 * prof['busy_ms'] / c_ms:.1f} % of the compiled "
+              f"tick), kernels {replay_launches[label]}, {copies} device "
+              f"copies, NCCL kernels {share['nccl_kernels']} "
+              f"({share['nccl_ms']:.4f} ms, {100 * share['share']:.2f} % of "
+              f"the tick; NCCL launches none at world 1 for an in-place "
+              f"reduction and copies for a gather); host nccl:* calls: "
+              f"eager {host_e}, a replay {host_c}; top "
+              + "; ".join(prof["top"]), flush=True)
+        del tick
+    dist.destroy_process_group()
+
+    # (b) four gloo ranks sharing the card, each part's staged compiled
+    # tick held against its eager tick on every rank (phase 10's run)
+    reports = md["reports"]
+    part = {"a": "dp=4 tick oval_1opp",
+            "b": "(dp=2, mp=2) tick oval_1opp",
+            "c_tick": "spatial mp=4 tick unclosed_monteblanco"}
+    for case, what in part.items():
+        rs = [r[case] for r in reports]
+        for r in rs:
+            _check(r["compiled"]["form"] == "staged" and
+                   r["compiled"]["equal"], f"compiled {case}: {r}")
+        n = (B if case != "c_tick" else dc.SIZES["chip"]["n_spatial"])
+        print(f"compiled sharded tick gloo 4 ranks on one card, {what} "
+              f"(B={n} in all) on {card}: staged (stages "
+              f"{rs[0]['compiled']['signatures']} signatures a rank), every "
+              f"field and both statistics torch.equal to the eager tick's "
+              f"on every rank at the capture and on a replay; ms a tick a "
+              f"rank eager {[round(x['eager_ms'], 2) for x in rs]}, "
+              f"compiled {[round(x['ms'], 2) for x in rs]} (max "
+              f"{max(x['eager_ms'] for x in rs):.2f} against "
+              f"{max(x['ms'] for x in rs):.2f}); collectives "
+              f"{[round(100 * x['eager_collective_share'], 2) for x in rs]} "
+              f"% of an eager tick, "
+              f"{[round(100 * x['collective_share'], 2) for x in rs]} % of a "
+              f"compiled one (host clock); graph pools "
+              f"{[round(x['compiled']['pool_mib'], 1) for x in rs]} MiB, "
+              f"capture {[round(x['compiled']['capture_ms'], 1) for x in rs]}"
+              f" ms", flush=True)
+
+    # (c) the dense window, compiled (captured again: phase 3 freed its
+    # graph) against eager
+    dense_e = pg.plan_window_dense.__wrapped__(*win_args)
+    dense_c = pg.plan_window_dense(*win_args)
+    for k in ("best", "bp", "vg", "win_layers", "blocked", "w_all"):
+        _check(torch.equal(dense_c[k], dense_e[k]),
+               f"compiled dense window: {k} differs from the eager call's")
+    del dense_c, dense_e
+    eager = pg.plan_window_dense.__wrapped__
+    windows = [(name, _tick_ms(lambda: f(*win_args), 10))
+               for name, f in (("eager", eager),
+                               ("compiled", pg.plan_window_dense),
+                               ("compiled", pg.plan_window_dense),
+                               ("eager", eager))]
+    e_ms = (windows[0][1] + windows[3][1]) / 2
+    c_ms = (windows[1][1] + windows[2][1]) / 2
+    graphs = list(pg.plan_window_dense.compiled[torch.device(
+        "cuda", torch.cuda.current_device())].graphs.values())
+    print(f"compiled dense window B={B} on {card}: best, bp, vg, win_layers, "
+          f"blocked and w_all torch.equal to the eager call's; host ms a "
+          f"call (median of 10 a window, in turns) "
+          + ", ".join(f"{n} {t:.3f}" for n, t in windows)
+          + f"; eager {e_ms:.3f} ms, compiled {c_ms:.3f} ms (eager / "
+          f"compiled {e_ms / c_ms:.2f}); {len(graphs)} signature, graph pool "
+          f"{sum(c.pool_bytes for c in graphs) / 2 ** 20:.1f} MiB",
+          flush=True)
+    print(f"compiled sharded phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return replay_launches
+
+
 def main():
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2171,7 +2385,10 @@ def main():
     win_args, start4, shrink4 = dense_window_inputs(oval, scen1)
     for _, path, *_ in KERNELS:
         wrapper(path).launches = 0
-    dense = pg.plan_window_dense(*win_args)
+    # counted on the eager body (a replay runs no Python); the compiled
+    # dense window below, held against it in phase 14
+    with cuda_graph.disabled():
+        dense = pg.plan_window_dense(*win_args)
     h_goal4 = dense["h_goal"].long()[:, None].expand(B, 4)
     with Recorder({"backtrace": targets["backtrace"]}) as dense_rec:
         sw = srch.search_window(dense["w_all"], start4, dense["vg"],
@@ -2226,6 +2443,24 @@ def main():
           f"plan_window_dense best/bp/vg equal plan_window_kernel's; "
           f"search_window kernels == plain ({n_feasible} of {R} rows "
           f"feasible)", flush=True)
+    # the compiled dense window (one CUDA graph per signature): its first
+    # call captures, its graph's pool holds w_all and the window's samples
+    t0 = time.perf_counter()
+    dense_c = pg.plan_window_dense(*win_args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    _same("compiled dense window", dense_c, dense)
+    (dense_call,) = pg.plan_window_dense.compiled[
+        torch.device("cuda", torch.cuda.current_device())].graphs.values()
+    print(f"compiled dense window B={B} on {card}: every field torch.equal "
+          f"to the eager call's; first call {first_ms:.1f} ms (warm-up "
+          f"{dense_call.warmup_ms:.1f} ms, capture "
+          f"{dense_call.capture_ms:.1f} ms, graph pool "
+          f"{dense_call.pool_bytes / 2 ** 20:.1f} MiB; w_all "
+          f"{_nbytes(dense['w_all']) / 2 ** 20:.1f} MiB)", flush=True)
+    # the pool is freed until phase 14 captures the window again
+    del dense_c
+    pg.plan_window_dense.compiled.clear()
 
     # ---- 7. the interactive facade, kernels vs plain on the card ----------
     store = os.path.join(ROOT, "artifacts", "chip_smoke")
@@ -2629,10 +2864,13 @@ def main():
 
     # ---- 16. the compiled facade against its eager calls -------------------
     compiled_facade_phase(card, store, wrapper)
+
+    # ---- 17. the compiled sharded tick and dense window -------------------
+    sharded_replay = compiled_sharded_phase(card, oval, win_args, md)
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all",
           flush=True)
 
-    # ---- 17. summary lines ------------------------------------------------
+    # ---- 18. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]
@@ -2667,6 +2905,10 @@ def main():
                          ladder_baseline_ms=s.get("ladder_baseline_ms"),
                          bound_nofma_ms=s.get("bound_nofma_ms"),
                          launches_sharded_tick_nccl_world1=md["nccl"][name],
+                         launches_compiled_sharded_dp_replay=sharded_replay[
+                             "dp"][name],
+                         launches_compiled_sharded_spatial_replay=(
+                             sharded_replay["spatial (dp=1, mp=1)"][name]),
                          launches_sharded_dp4_rank=md["rank"]["a"][name],
                          launches_sharded_dp2_mp2_rank=md["rank"]["b"][name],
                          launches_spatial_mp4_rank=md["rank"]["c"][name],

@@ -88,8 +88,10 @@ def _goal_cost(tabs, kernels: bool) -> float:
 def _dryrun_rank(n: int, backend=None, cpu: bool = False) -> dict:
     """One rank of :func:`dryrun_multidevice`: its three parts made by
     ``testing_tools.dist_cases`` (on the card each held against its plain
-    run on the same inputs), what the JAX dry run asserts checked, and its
-    numbers with each part's report (its kernels' launches)."""
+    run on the same inputs, and the two ticks compiled by
+    ``make_sharded_tick`` held against their eager ticks), what the JAX
+    dry run asserts checked, and its numbers with each part's report (its
+    kernels' launches, counted on the eager ticks)."""
     import torch.distributed as dist
     from graphbasedlocaltrajectoryplanner_torch.parallel import distributed
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (

@@ -27,6 +27,19 @@ may keep one call's outputs (a tick's ``vx_sqp`` as the next tick's
 ``sqp_x0``) while the next call runs.  Nothing falls back: a capture or a
 replay that fails raises torch's error.
 
+``fn`` may issue ``torch.distributed`` collectives on a group whose
+collectives a stream capture can hold (NCCL; ``DistMesh.capturable``):
+the warm-up runs them eagerly, which creates every group's communicator
+before the capture begins (one created under capture fails), and the
+graph holds them, so every rank of the group must capture and replay the
+same signature at the same call.  The capture keeps CUDA's default
+``global`` error mode for these callers too: eager NCCL collectives right
+before a capture (the c10d watchdog querying their events) did not
+invalidate it on torch 2.11 with NCCL 2.28.9.  gloo stages card tensors
+through the host, which a capture refuses; such callers capture their
+collective-free stages and run the collectives between the replays
+(``parallel/scenario.compile_sharded_tick``).
+
 ``fn`` must be capture-safe: no host read of a device value (``item``,
 ``bool``, ``tolist``) and no tensor built from Python data on the card
 (a pageable host-to-device copy waits for the stream).  :func:`as_tensor`
@@ -54,6 +67,8 @@ import torch
 _cuda = torch.cuda
 # the depth of nested disabled() blocks
 _disabled = 0
+# the depth of captures under way (see capturing())
+_capturing = 0
 
 
 @contextlib.contextmanager
@@ -68,6 +83,15 @@ def disabled():
         yield
     finally:
         _disabled -= 1
+
+
+def capturing() -> bool:
+    """Whether a capture is under way: one of :func:`capture`'s (also on
+    the CPU stand-ins of the tests) or any other on the current CUDA
+    stream.  Code that must not be captured (a host clock around a
+    collective) raises on it."""
+    return _capturing > 0 or (torch.cuda.is_available()
+                              and torch.cuda.is_current_stream_capturing())
 
 
 def as_tensor(x, dtype=None, device=None) -> torch.Tensor:
@@ -161,8 +185,13 @@ class CapturedCall:
         reserved = _cuda.memory_reserved(device)
         t0 = time.perf_counter()
         self.graph = _cuda.CUDAGraph()
-        with _cuda.graph(self.graph):
-            out = fn(*args, **kwargs)
+        global _capturing
+        _capturing += 1
+        try:
+            with _cuda.graph(self.graph):
+                out = fn(*args, **kwargs)
+        finally:
+            _capturing -= 1
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = _cuda.memory_reserved(device) - reserved
         self.static_out = []

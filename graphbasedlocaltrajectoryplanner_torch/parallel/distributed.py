@@ -41,6 +41,7 @@ from graphbasedlocaltrajectoryplanner_torch.models.lattice import (
     build_lattice)
 from graphbasedlocaltrajectoryplanner_torch.models.track import (
     make_oval_track)
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.utils.config import (
     OfflineConfig)
 from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
@@ -134,9 +135,15 @@ class DistMesh:
     mesh has one rank and its collectives return their input.
 
     Collectives over a set of axes: :meth:`all_reduce` and
-    :meth:`all_gather` (in coordinate order).  With ``timed`` set, each
-    collective synchronises the device before and after it and adds its
-    host seconds to ``collective_s`` (the share of a tick spent in them).
+    :meth:`all_gather` (in coordinate order); ``n_collectives`` counts
+    the calls of the Python code that issues them, so, like a kernel's
+    ``launches``, it moves when a CUDA graph that holds them is captured
+    and not when it is replayed.  With ``timed`` set, each collective
+    synchronises the device before and after it and adds its host seconds
+    to ``collective_s`` (the share of a tick spent in them); a capture
+    cannot synchronise, so a timed collective under capture raises.
+    :attr:`capturable` says whether a CUDA graph can hold the mesh's
+    collectives.
     """
 
     def __init__(self, shape, axis_names, device=None):
@@ -203,9 +210,22 @@ class DistMesh:
     def data_axes(self, spatial_axis=None) -> tuple:
         return tuple(a for a in self.axis_names if a != spatial_axis)
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: on NCCL,
+        and with no process group (each collective returns its input);
+        not on gloo, which stages card tensors through the host."""
+        return not self.distributed or dist.get_backend() == "nccl"
+
     def _timed(self, fn):
         if not self.timed:
             return fn()
+        if cuda_graph.capturing():
+            raise RuntimeError(
+                "DistMesh.timed is set during a CUDA graph capture: a "
+                "captured collective cannot be timed on the host clock; "
+                "unset mesh.timed, or time the eager tick "
+                "(tick.__wrapped__)")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
@@ -346,19 +366,88 @@ def launch_ranks(argv, n_ranks: int, timeout_s: float, cwd=None) -> list:
     return outs
 
 
+def collective_share(tick, args=(), tick_ms: float = None,
+                     replays: int = 5) -> dict:
+    """The share of one call ``tick(*args)`` of a sharded tick
+    (``scenario.make_sharded_tick``) spent in the mesh's collectives.
+
+    Where the collectives run eagerly (the eager tick, and the staged
+    compiled tick under gloo) they are timed on the host clock
+    (``mesh.timed``: each collective between two device synchronisations,
+    over the tick's host time).  Where a CUDA graph holds them (the
+    compiled tick's ``"graph"`` form under NCCL) ``replays`` replays run
+    under ``torch.profiler``, the ranks meeting before each at a barrier
+    of a gloo group (which launches nothing on the card): each NCCL
+    kernel's (its name holds ``nccl``) median device time, times its
+    launches a replay, summed, over ``tick_ms`` (default the profiled
+    calls' mean host time).  A collective kernel's time includes its wait
+    for the other ranks.  NCCL at world 1 launches no kernel for an
+    in-place reduction and copies for a gather, so its share is 0 there.
+
+    :returns: dict(share, how ("host" or "profiled replay"), and for a
+        profiled replay nccl_ms and nccl_kernels {name: launches a
+        replay}).
+    """
+    mesh = tick.mesh
+    dev = mesh.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    if getattr(tick, "form", None) == "graph":
+        from torch.profiler import ProfilerActivity, profile
+        host = dist.new_group(backend="gloo") if mesh.distributed else None
+        tick(*args)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(replays):
+                if host is not None:
+                    dist.barrier(group=host)
+                sync()
+                tick(*args)
+                sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / replays
+        times = {}
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA") \
+                    and "nccl" in e.name.lower():
+                times.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        nccl_ms = sum(float(np.median(t)) * len(t) / replays
+                      for t in times.values())
+        return dict(share=nccl_ms / (tick_ms or wall_ms),
+                    how="profiled replay", nccl_ms=nccl_ms,
+                    nccl_kernels={k: len(t) / replays
+                                  for k, t in times.items()})
+    mesh.timed, mesh.collective_s = True, 0.0
+    try:
+        sync()
+        t0 = time.perf_counter()
+        tick(*args)
+        sync()
+        return dict(share=mesh.collective_s / (time.perf_counter() - t0),
+                    how="host")
+    finally:
+        mesh.timed = False
+
+
 def run_multihost_selftest(batch_per_device: int = 8, iters: int = 2,
                            seed: int = 0, return_results: bool = False):
     """One sharded-tick run inside an initialized process: the quick oval
-    lattice, ``make_sharded_tick`` over :func:`make_dist_mesh`, timed over
-    ``iters`` ticks after a first one; the fleet statistics, which every
-    rank must agree on (they come out of collectives).  Used by
+    lattice, ``make_sharded_tick`` over :func:`make_dist_mesh` (compiled
+    on the card: its form is ``tick_form``), timed over ``iters`` ticks
+    after a first one, and the share of a tick in collectives
+    (:func:`collective_share`); the fleet statistics, which every rank
+    must agree on (they come out of collectives).  Used by
     ``testing_tools/scaling_bench.py`` and the port's distributed tests.
 
     :returns: dict(process_index, process_count, global_devices, batch,
         replans_per_sec, fleet_min_cost, fleet_actions, tick_ms,
-        collective_share, device); with ``return_results`` also the
-        gathered ``cost``, ``valid`` and ``traj_sum`` (per scenario, the
-        sum of |trajs|).
+        collective_share, collective_share_how, tick_form, device); with
+        ``return_results`` also the gathered ``cost``, ``valid`` and
+        ``traj_sum`` (per scenario, the sum of |trajs|).
     """
     mesh = make_dist_mesh()
     dev = mesh.device
@@ -382,12 +471,7 @@ def run_multihost_selftest(batch_per_device: int = 8, iters: int = 2,
         res, stats = tick(scen)
     sync()
     dt = time.perf_counter() - t0
-    mesh.timed, mesh.collective_s = True, 0.0
-    t1 = time.perf_counter()
-    tick(scen)
-    sync()
-    share = mesh.collective_s / (time.perf_counter() - t1)
-    mesh.timed = False
+    share = collective_share(tick, (scen,), dt / iters * 1e3)
     rep = dict(
         process_index=mesh.rank,
         process_count=n_dev,
@@ -395,7 +479,9 @@ def run_multihost_selftest(batch_per_device: int = 8, iters: int = 2,
         batch=batch,
         replans_per_sec=batch * iters / dt,
         tick_ms=dt / iters * 1e3,
-        collective_share=share,
+        collective_share=share["share"],
+        collective_share_how=share["how"],
+        tick_form=getattr(tick, "form", "eager"),
         fleet_min_cost=float(stats["fleet_min_cost"]),
         fleet_actions=int(stats["fleet_actions"]),
         device=str(dev),

@@ -681,12 +681,22 @@ def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
     data axes only (a spatial axis replicates the results, so a sum over
     it would count each action once per rank of it).
 
+    On the card with the kernels the tick is compiled, as the JAX
+    package's ``jax.jit(shard_map(...))``: :func:`compile_sharded_tick`,
+    one CUDA graph per input signature holding the whole tick where the
+    mesh's collectives can be captured (NCCL, or one process without a
+    group), else (gloo) its collective-free stages captured with the
+    collectives run between their replays.  ``tick.__wrapped__`` is the
+    eager tick; on the CPU and with ``kernels=False`` the tick stays
+    eager.
+
     :param zone_block: ``(L, N)`` shared, or ``(B, L, N)`` per scenario
         of the whole batch (each rank keeps its rows).
     :param device: default the mesh's device (the card unless the ranks
         run on the CPU).
     :param kw: options of :func:`scenario_tick`, as for
-        :func:`make_batched_tick`.
+        :func:`make_batched_tick`; a per-call override must have the same
+        value on every rank (a compiled tick's ranks capture together).
     """
     # distributed.py imports this module
     from graphbasedlocaltrajectoryplanner_torch.parallel import distributed
@@ -710,34 +720,151 @@ def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
                                      device=dev)
     packed = pg.packed_edge_table(lat)
 
-    @torch.no_grad()
-    def tick(scen: Scenario, **over):
-        if scen.start_layer.device != dev:
-            scen = scen.to(dev)
-        if spatial_axis is None:
-            obs, window = _batched_window(lat, scen, zone_block,
-                                          w_last_factors, kernels=kernels)
-        else:
-            with record_function("gltpl.object_selection"):
-                obs = _select_obstacle(lat, scen)
-            with record_function("gltpl.plan_window"):
-                window = spatial.spatial_dp_shard(
-                    lat, scen.start_layer, scen.start_node, zone_block,
-                    scen.obj_pos, scen.obj_radius, scen.obj_active,
-                    obs["obs_layer"], obs["obs_node"], obs["obs_found"],
-                    scen.last_nodes, w_last_factors, n_last=N_LAST,
-                    axis_name=spatial_axis, mesh=mesh, kernels=kernels)
+    def finish(scen, obs, window, **over):
+        """The tick on the window and the statistics' local inputs."""
         res = scenario_tick(lat, scen, zone_block=zone_block,
                             w_last_factors=w_last_factors, kernels=kernels,
                             packed=packed,
                             precomputed=dict(obs=obs, window=window),
                             **{**kw, **over})
         cost = torch.where(res["valid"], res["cost"], math.inf)
-        n_valid = res["valid"].sum(dtype=torch.int32)
-        stats = dict(
-            fleet_min_cost=mesh.all_reduce(cost.min(), ReduceOp.MIN, axes),
-            fleet_actions=(mesh.all_reduce(n_valid, ReduceOp.SUM, data_axes)
-                           if data_axes else n_valid))
-        return res, stats
+        return res, cost.min(), res["valid"].sum(dtype=torch.int32)
 
+    # the collective-free stages, each a function of tensors
+    if spatial_axis is None:
+        def whole(scen, **over):
+            obs, window = _batched_window(lat, scen, zone_block,
+                                          w_last_factors, kernels=kernels)
+            return finish(scen, obs, window, **over)
+        stages = dict(tick=whole)
+    else:
+        D, i = mesh.shape[spatial_axis], mesh.coords[spatial_axis]
+
+        def stage_a(scen):
+            with record_function("gltpl.object_selection"):
+                obs = _select_obstacle(lat, scen)
+            with record_function("gltpl.plan_window"):
+                return (obs, *spatial._stage_a(
+                    lat, i, D, scen.start_layer, zone_block, scen.obj_pos,
+                    scen.obj_radius, scen.obj_active, obs["obs_layer"],
+                    obs["obs_node"], obs["obs_found"], scen.last_nodes,
+                    w_last_factors, N_LAST, kernels))
+
+        def stage_b(start_node, w4, Pg):
+            with record_function("gltpl.plan_window"):
+                return spatial._stage_b(i, start_node, w4, Pg, kernels)
+
+        def stage_c(start_node, meta, obs_node, parts):
+            with record_function("gltpl.plan_window"):
+                return spatial._stage_c(lat, start_node, zone_block, meta,
+                                        obs_node, parts)
+        stages = dict(a=stage_a, b=stage_b, c=stage_c, d=finish)
+
+    def compose(st):
+        """The tick from the stages ``st`` and the collectives between
+        them."""
+        def tick(scen: Scenario, **over):
+            if scen.start_layer.device != dev:
+                scen = scen.to(dev)
+            with torch.no_grad():
+                if spatial_axis is None:
+                    res, cost_min, n_valid = st["tick"](scen, **over)
+                else:
+                    obs, meta, w4, P = st["a"](scen)
+                    with record_function("gltpl.plan_window"):
+                        Pg = mesh.all_gather(P, spatial_axis)
+                    chunk = st["b"](scen.start_node, w4, Pg)
+                    with record_function("gltpl.plan_window"):
+                        parts = mesh.all_gather(chunk, spatial_axis)
+                    window = st["c"](scen.start_node, meta, obs["obs_node"],
+                                     parts)
+                    res, cost_min, n_valid = st["d"](scen, obs, window,
+                                                     **over)
+                stats = dict(
+                    fleet_min_cost=mesh.all_reduce(cost_min, ReduceOp.MIN,
+                                                   axes),
+                    fleet_actions=(mesh.all_reduce(n_valid, ReduceOp.SUM,
+                                                   data_axes)
+                                   if data_axes else n_valid))
+            return res, stats
+        return tick
+
+    tick = compose(stages)
+    tick.stages, tick.compose, tick.mesh = stages, compose, mesh
+    if dev.type == "cuda" and kernels:        # cuda_graph.capture_on_card
+        return compile_sharded_tick(tick, device=dev)
     return tick
+
+
+class CompiledShardedTick:
+    """A sharded tick compiled on the card (see :func:`compile_sharded_tick`);
+    called as the eager tick is.
+
+    :ivar form: ``"graph"`` (the whole tick, collectives included, one CUDA
+        graph per input signature) or ``"staged"`` (each collective-free
+        stage captured, the collectives run between their replays).
+    :ivar parts: the captured callables by stage name (``"tick"`` for the
+        whole graph; ``"tick"`` or ``"a"``-``"d"`` staged).
+    :ivar __wrapped__: the eager tick.
+    """
+
+    def __init__(self, tick, form: str, device):
+        if form not in ("graph", "staged"):
+            raise ValueError(f"form {form!r}: 'graph' or 'staged'")
+        self.__wrapped__ = tick
+        self.form, self.mesh = form, tick.mesh
+        if form == "graph":
+            self.parts = dict(tick=cuda_graph.capture(tick, device))
+            self._run = self.parts["tick"]
+        else:
+            self.parts = {name: cuda_graph.capture(fn, device)
+                          for name, fn in tick.stages.items()}
+            self._run = tick.compose(self.parts)
+
+    @property
+    def graphs(self) -> dict:
+        """Every captured signature, ``(stage, signature) ->
+        cuda_graph.CapturedCall``."""
+        return {(name, spec): call for name, part in self.parts.items()
+                for spec, call in part.graphs.items()}
+
+    def __call__(self, scen, **over):
+        if cuda_graph._disabled:
+            return self.__wrapped__(scen, **over)
+        if self.form == "graph" and self.mesh.timed:
+            raise RuntimeError(
+                "mesh.timed is set, but this compiled tick holds its "
+                "collectives inside a CUDA graph, where the host clock "
+                "cannot time them: unset it, time the eager tick "
+                "(tick.__wrapped__), or read the collectives' device time "
+                "from a profiled replay (distributed.collective_share)")
+        return self._run(scen, **over)
+
+
+def compile_sharded_tick(tick, form: str = None, device=None):
+    """The eager sharded tick of :func:`make_sharded_tick` compiled as
+    the JAX package jits its ``shard_map``: with ``form="graph"`` one CUDA
+    graph per input signature holding the whole tick, collectives included
+    (``ops/cuda_graph.capture``; every rank captures and replays the same
+    signature at the same call); with ``form="staged"`` each
+    collective-free stage captured on its own and the collectives run
+    eagerly between the replays: the data-parallel tick's one stage (the
+    tick through the statistics' local inputs) and the two reductions
+    after it; the spatial tick's stages A, B and C of
+    ``spatial.spatial_dp_shard`` with its two gathers between them, then
+    stage D (:func:`scenario_tick` and the statistics' inputs) and the
+    reductions.  The default form is the one the mesh's backend fixes:
+    ``"graph"`` where ``mesh.capturable`` (NCCL, or no process group),
+    ``"staged"`` on gloo, which stages card tensors through the host.
+
+    Inside ``cuda_graph.disabled()`` every form runs the eager tick.  The
+    mesh's ``timed`` collectives cannot run in a graph: a capture with it
+    set raises, and so does any call of the ``"graph"`` form (the staged
+    form times its eager collectives as the eager tick does).
+
+    :param device: where the static buffers live (default the mesh's).
+    """
+    if form is None:
+        form = "graph" if tick.mesh.capturable else "staged"
+    return CompiledShardedTick(tick, form, device if device is not None
+                               else tick.mesh.device)

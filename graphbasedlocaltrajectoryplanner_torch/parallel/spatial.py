@@ -117,32 +117,18 @@ def rerun_from_frontier(f, w4, kernels: bool = True):
     return best[..., 2:, :], bp[..., 2:, :]
 
 
-def spatial_dp_shard(lat: Lattice, start_layer, start_node, zone_block,
-                     obj_pos, obj_radius, obj_active, obs_layer, obs_node,
-                     obs_found, last_nodes, w_last_factors, n_last: int = 4,
-                     axis_name: str = "mp", D: int = None, *, mesh,
-                     kernels: bool = True):
-    """The two-phase window DP of this rank's scenarios (leading B) over
-    mesh axis ``axis_name``, called by every rank of the axis on the same
-    scenarios.  Returns the full tables, equal on every rank of the axis:
-    dict(best, bp, vg (B, 4, H+1, N), win_layers (B, H+1), h_goal (B,)),
-    as ``pathgen.plan_window_kernel``.
-
-    :param D: the axis' size, as the JAX package's body is told it; given,
-        it must equal ``mesh.shape[axis_name]``.
-    :param mesh: the ``distributed.DistMesh`` whose ranks call this (the
-        JAX package's ``shard_map`` mesh).
-    """
-    L, N, H = lat.L, lat.N, lat.H_max
+def _stage_a(lat: Lattice, i: int, D: int, start_layer, zone_block,
+             obj_pos, obj_radius, obj_active, obs_layer, obs_node,
+             obs_found, last_nodes, w_last_factors, n_last: int,
+             kernels: bool):
+    """Phase 1 on rank ``i`` of ``D``: the window metadata, the slab hits,
+    the masked slabs of the rank's chunk of steps and their product.
+    Returns ``(meta, w4, P)``: the metadata that stage C reads, the slabs
+    (B, 4, Hd, N, N) and the chunk's transfer matrix (B, 4, N, N)."""
+    N, H = lat.N, lat.H_max
     dev = lat.device
     B = start_layer.shape[0]
-    if D is not None and D != mesh.shape[axis_name]:
-        raise ValueError(f"D={D} but the mesh's axis {axis_name!r} holds "
-                         f"{mesh.shape[axis_name]} ranks")
-    D = mesh.shape[axis_name]
-    i = mesh.coords[axis_name]
     Hd = -(-H // D)
-
     pre = pg.window_meta(lat, start_layer, obj_pos, obj_radius, obj_active,
                          obs_layer, obs_node, obs_found)
     with record_function("gltpl.hit_slab"):
@@ -160,36 +146,92 @@ def spatial_dp_shard(lat: Lattice, start_layer, start_node, zone_block,
         eye = torch.eye(N, dtype=torch.bool, device=dev)
         ident = torch.where(eye, 0.0, INF).to(torch.float32)
         w4 = torch.where((hs >= H)[:, None, None], ident, w4)
-
-        # phase 1: the chunk's transfer matrix
         P = ident.expand(B, 4, N, N)
         for k in range(Hd):
             P = _minplus_mm(P, w4[:, :, k])
-        # phase 2: one exchange, the entering frontier, the local re-run
-        Pg = mesh.all_gather(P, axis_name)                   # D x (B,4,N,N)
-        f = torch.where(torch.arange(N, device=dev)[None, :]
+    meta = {k: pre[k] for k in ("win_layers", "h_goal", "p_obs", "in_win")}
+    return meta, w4, P
+
+
+def _stage_b(i: int, start_node, w4, Pg, kernels: bool):
+    """Phase 2 on rank ``i``: the frontier entering its chunk, composed
+    from the gathered transfer matrices ``Pg`` of the ranks before it, and
+    the chunk's re-run from it.  Returns ``best`` and ``bp``'s bits (as
+    float32) stacked, (2, B, 4, Hd, N), for one exchange."""
+    B, _, _, N, _ = w4.shape
+    with record_function("gltpl.window_dp"):
+        f = torch.where(torch.arange(N, device=w4.device)[None, :]
                         == start_node.long()[:, None], 0.0, INF)
         f = f.to(torch.float32)[:, None, :].expand(B, 4, N)
         for j in range(i):
             f = torch.clamp(torch.amin(f[..., :, None] + Pg[j], dim=-2),
                             max=INF)
         best_t, bp_t = rerun_from_frontier(f, w4, kernels)   # (B,4,Hd,N)
-        # the chunks in step order, best and bp in one exchange (bp's bits
-        # carried as float32)
-        parts = mesh.all_gather(
-            torch.stack([best_t, bp_t.view(torch.float32)]), axis_name)
+        return torch.stack([best_t, bp_t.view(torch.float32)])
+
+
+def _stage_c(lat: Lattice, start_node, zone_block, meta, obs_node, parts):
+    """The full tables from the gathered chunks ``parts`` (in step order)
+    and the virtual-goal vectors: the dict of
+    ``pathgen.plan_window_kernel``."""
+    N, H = lat.N, lat.H_max
+    dev = lat.device
+    B = start_node.shape[0]
+    with record_function("gltpl.window_dp"):
         full = torch.cat(parts, dim=-2)[..., :H, :]          # (2,B,4,H,N)
-        best0 = torch.full((B, 4, 1, N), INF, dtype=torch.float32,
-                           device=dev)
-        best0[torch.arange(B, device=dev), :, 0, start_node.long()] = 0.0
+        # 0 at the start node, INF elsewhere (a where, not an indexed
+        # store of a Python number: a capture refuses its host copy)
+        best0 = torch.where(torch.arange(N, device=dev)[None, :]
+                            == start_node.long()[:, None], 0.0, INF)
+        best0 = best0.to(torch.float32)[:, None, None, :].expand(B, 4, 1, N)
         best = torch.cat([best0, full[0]], dim=2)
         bp = torch.cat([torch.full((B, 4, 1, N), -1, dtype=torch.int32,
                                    device=dev),
                         full[1].contiguous().view(torch.int32)], dim=2)
-    vg = pg.window_vg(lat, pre["win_layers"], zone_block, pre["p_obs"],
-                      pre["in_win"], obs_node)
-    return dict(best=best, bp=bp, vg=vg, win_layers=pre["win_layers"],
-                h_goal=pre["h_goal"])
+    vg = pg.window_vg(lat, meta["win_layers"], zone_block, meta["p_obs"],
+                      meta["in_win"], obs_node)
+    return dict(best=best, bp=bp, vg=vg, win_layers=meta["win_layers"],
+                h_goal=meta["h_goal"])
+
+
+def spatial_dp_shard(lat: Lattice, start_layer, start_node, zone_block,
+                     obj_pos, obj_radius, obj_active, obs_layer, obs_node,
+                     obs_found, last_nodes, w_last_factors, n_last: int = 4,
+                     axis_name: str = "mp", D: int = None, *, mesh,
+                     kernels: bool = True):
+    """The two-phase window DP of this rank's scenarios (leading B) over
+    mesh axis ``axis_name``, called by every rank of the axis on the same
+    scenarios.  Returns the full tables, equal on every rank of the axis:
+    dict(best, bp, vg (B, 4, H+1, N), win_layers (B, H+1), h_goal (B,)),
+    as ``pathgen.plan_window_kernel``.
+
+    Three collective-free stages with the two exchanges between them:
+    A (:func:`_stage_a`, phase 1), the gather of the transfer matrices,
+    B (:func:`_stage_b`, the entering frontier and the re-run), the gather
+    of the chunks' tables, C (:func:`_stage_c`, the full tables); the
+    compiled sharded tick captures each stage on its own where the mesh's
+    collectives cannot be captured (``scenario.compile_sharded_tick``).
+
+    :param D: the axis' size, as the JAX package's body is told it; given,
+        it must equal ``mesh.shape[axis_name]``.
+    :param mesh: the ``distributed.DistMesh`` whose ranks call this (the
+        JAX package's ``shard_map`` mesh).
+    """
+    if D is not None and D != mesh.shape[axis_name]:
+        raise ValueError(f"D={D} but the mesh's axis {axis_name!r} holds "
+                         f"{mesh.shape[axis_name]} ranks")
+    D = mesh.shape[axis_name]
+    i = mesh.coords[axis_name]
+    meta, w4, P = _stage_a(lat, i, D, start_layer, zone_block, obj_pos,
+                           obj_radius, obj_active, obs_layer, obs_node,
+                           obs_found, last_nodes, w_last_factors, n_last,
+                           kernels)
+    with record_function("gltpl.window_dp"):
+        Pg = mesh.all_gather(P, axis_name)                   # D x (B,4,N,N)
+    chunk = _stage_b(i, start_node, w4, Pg, kernels)
+    with record_function("gltpl.window_dp"):
+        parts = mesh.all_gather(chunk, axis_name)
+    return _stage_c(lat, start_node, zone_block, meta, obs_node, parts)
 
 
 def spatial_window_dp(lat: Lattice, mesh, start_layer, start_node,

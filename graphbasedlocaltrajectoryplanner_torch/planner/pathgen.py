@@ -23,6 +23,7 @@ from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
 from graphbasedlocaltrajectoryplanner_torch.ops import splines as spl
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_backtrace
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_collision
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_minplus
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_window
 from graphbasedlocaltrajectoryplanner_torch.ops.heading import (
@@ -134,6 +135,10 @@ def plan_window_kernel(lat: Lattice, start_layer, start_node, zone_block,
                 h_goal=pre["h_goal"])
 
 
+# the compiled dense window of each card (plan_window_dense.compiled)
+_DENSE = {}
+
+
 def plan_window_dense(lat: Lattice, start_layer, start_node, zone_block,
                       obj_pos, obj_radius, obj_active, obs_layer, obs_node,
                       obs_found, last_nodes, w_last_factors,
@@ -145,10 +150,37 @@ def plan_window_dense(lat: Lattice, start_layer, start_node, zone_block,
     (kernel 6 on the card).  Arguments as :func:`plan_window_kernel`, with
     a shared ``(L, N)`` zone mask.
 
+    On the card with the kernels each call runs one CUDA graph per input
+    signature (``ops/cuda_graph.capture``, as the JAX package jits this
+    function): the lattice is an argument of the graph, so its tensors'
+    shapes and its static fields are part of the signature and its tensors
+    are copied in like the scenarios'.  The graphs of a card are
+    ``plan_window_dense.compiled[device].graphs``; the graph's pool holds
+    ``w_all`` and the window's samples.  ``__wrapped__`` is the eager
+    function, which the CPU, ``kernels=False`` and
+    ``cuda_graph.disabled()`` run.
+
     :returns: dict with ``best``/``bp``/``vg`` (B, 4, H+1, N),
         ``win_layers`` (B, H+1), ``blocked`` (B, H, N, N), ``obj_layer``
         (B, O), ``h_goal`` (B,) and ``w_all``.
     """
+    args = (lat, start_layer, start_node, zone_block, obj_pos, obj_radius,
+            obj_active, obs_layer, obs_node, obs_found, last_nodes,
+            w_last_factors, n_last, kernels)
+    if not kernels or lat.device.type != "cuda":
+        return _plan_window_dense(*args)
+    fn = _DENSE.get(lat.device)
+    if fn is None:
+        fn = _DENSE[lat.device] = cuda_graph.capture(_plan_window_dense,
+                                                     lat.device)
+    return fn(*args)
+
+
+def _plan_window_dense(lat: Lattice, start_layer, start_node, zone_block,
+                       obj_pos, obj_radius, obj_active, obs_layer, obs_node,
+                       obs_found, last_nodes, w_last_factors,
+                       n_last: int = None, kernels: bool = True):
+    """The eager :func:`plan_window_dense`."""
     _check_n_last(last_nodes, n_last)
     L, N, H = lat.L, lat.N, lat.H_max
     dev = lat.device
@@ -213,6 +245,10 @@ def plan_window_dense(lat: Lattice, start_layer, start_node, zone_block,
     return dict(best=best, bp=bp, vg=vg, win_layers=win_layers,
                 blocked=blocked, obj_layer=obj_layer, h_goal=h_goal,
                 w_all=w_all)
+
+
+plan_window_dense.__wrapped__ = _plan_window_dense
+plan_window_dense.compiled = _DENSE
 
 
 def feasibility_vectors(best, vg):

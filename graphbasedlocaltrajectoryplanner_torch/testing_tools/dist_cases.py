@@ -14,19 +14,29 @@ each rank:
   b. runs the composed tick on a ``(dp=2, mp=2)`` mesh (``spatial_axis=
      "mp"``), and with ``small`` also under per-scenario zones;
   c. runs ``spatial_window_dp`` on an ``("mp",)`` mesh of 4 over seeded
-     scenarios of each lattice (:func:`spatial_inputs`);
+     scenarios of each lattice (:func:`spatial_inputs`), and with
+     ``chip`` the sharded tick with ``spatial_axis="mp"`` on that mesh
+     over as many unclosed-Monteblanco scenarios (``c_tick``: every rank
+     holds the whole batch);
   d. (``small`` only) ``run_multihost_selftest`` on a ``(dcn=2, dp=2)``
      mesh.
 
-Rank 0 writes the gathered results of a, b and d and every rank its
-tables of c to ``DIR`` (``.npz``); each rank prints one JSON line: its
-fleet statistics, its kernels' launches per case (counted from 0 just
-before the kernel run), on the card the kernel run against the plain
-run on the same rank, and with ``--size chip`` the ms of a tick a rank
-and the share of it spent in collectives.  ``small`` is the CPU tests'
-size (the small oval, L=45, N=24, H=20); ``chip`` the card's: the default
-oval at B=1024 and 64 unclosed-Monteblanco scenarios, where rank 0 also
-records the spatial path's ``hit_slab`` and ``minplus`` calls
+The ticks of a, b and ``c_tick`` are compiled (:func:`tick_case`): on the
+card by ``make_sharded_tick`` itself, one CUDA graph per signature under
+NCCL, captured stages with the collectives between them under gloo; on
+the CPU ranks of ``small`` those of a and b in the staged form on the
+stand-ins of ``graph_standins``.  Each rank holds its compiled tick
+against its eager tick, ``torch.equal``.  Rank 0 writes the gathered
+results of a, b and d and every rank its tables of c to ``DIR``
+(``.npz``); each rank prints one JSON line: its fleet statistics, its
+kernels' launches per case (counted from 0 just before the eager kernel
+run), the compiled tick's form and capture, on the card the kernel run
+against the plain run on the same rank, and with ``--size chip`` the ms
+of a tick a rank, eager and compiled, and the share of each in
+collectives.  ``small`` is the CPU tests' size (the small oval, L=45,
+N=24, H=20); ``chip`` the card's: the default oval at B=1024 and 64
+unclosed-Monteblanco scenarios, where rank 0 also records the spatial
+path's ``hit_slab`` and ``minplus`` calls
 (``rec_spatial.pt``).  :func:`tick_case`, :func:`window_args` and
 :func:`spatial_run` also make the parts of ``entry.dryrun_multidevice``.
 """
@@ -34,6 +44,7 @@ records the spatial path's ``hit_slab`` and ``minplus`` calls
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -46,13 +57,15 @@ import torch.distributed as dist
 from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
 from graphbasedlocaltrajectoryplanner_torch.models import track as tt
 from graphbasedlocaltrajectoryplanner_torch.ops import (
-    cuda_admm, cuda_backtrace, cuda_collision, cuda_minplus, cuda_velocity,
-    cuda_window)
+    cuda_admm, cuda_backtrace, cuda_collision, cuda_graph, cuda_minplus,
+    cuda_velocity, cuda_window)
 from graphbasedlocaltrajectoryplanner_torch.ops.search import FEAS_THRESH
 from graphbasedlocaltrajectoryplanner_torch.parallel import distributed
 from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
 from graphbasedlocaltrajectoryplanner_torch.parallel import spatial
 from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
+from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+    graph_standins)
 from graphbasedlocaltrajectoryplanner_torch.utils.config import OfflineConfig
 
 UNCLOSED_CSV = os.path.join(
@@ -72,12 +85,14 @@ SIZES = {
 SEED_DP, SEED_COMPOSED, SEED_SPATIAL = 0, 1, 3
 # exact fields of the tick (the rest: trajectories, within the bar)
 EXACT = ("valid", "h_eff", "cost", "n_valid", "case_a", "relabel", "em_base")
-# the kernels each case launches on the card (b: the spatial window DP in
-# place of the window-DP kernel)
+# the kernels each case launches on the card (b and c_tick: the spatial
+# window DP in place of the window-DP kernel)
 CASE_KERNELS = {
     "a": ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan"),
     "b": ("hit_slab", "backtrace", "vel_scan_cgg", "vel_scan", "minplus"),
     "c": ("hit_slab", "minplus"),
+    "c_tick": ("hit_slab", "backtrace", "vel_scan_cgg", "vel_scan",
+               "minplus"),
 }
 # each kernel's name (as in chip_smoke.py) and its wrapper
 KERNEL_PATHS = dict(
@@ -227,9 +242,8 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _timing(fn, mesh, dev, reps):
-    """Median ms of a tick a rank (every rank starts each tick together)
-    and the share of one tick spent in collectives."""
+def _timing(fn, dev, reps):
+    """Median ms of a tick a rank (every rank starts each tick together)."""
     ms = []
     for _ in range(reps):
         dist.barrier()
@@ -239,13 +253,19 @@ def _timing(fn, mesh, dev, reps):
         _sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
     dist.barrier()
-    mesh.timed, mesh.collective_s = True, 0.0
-    t0 = time.perf_counter()
-    fn()
-    _sync(dev)
-    share = mesh.collective_s / (time.perf_counter() - t0)
-    mesh.timed = False
-    return float(np.median(ms)), share
+    return float(np.median(ms))
+
+
+def _same(got, ref, what):
+    """A compiled tick's ``(results, stats)`` against the eager tick's:
+    every field and both statistics ``torch.equal``."""
+    for part_g, part_r in zip(got, ref):
+        if part_g.keys() != part_r.keys():
+            raise AssertionError(f"{what}: fields {sorted(part_g)}")
+        for k in part_r:
+            if not torch.equal(part_g[k], part_r[k]):
+                raise AssertionError(f"{what}: {k} differs from the eager "
+                                     "tick's")
 
 
 def zone_case(lat, scen):
@@ -261,35 +281,62 @@ def zone_case(lat, scen):
 
 
 def tick_case(tag, mesh, lat, batch, seed, spatial_axis, dev, *,
-              out_dir=None, timed=False, zones=False):
+              out_dir=None, timed=False, zones=False, standins=False):
     """The sharded tick on this rank's slice of a seeded batch with one
     opponent each, gathered (with ``zones``, under :func:`zone_case`'s
-    per-scenario zones).  On the card the kernel run is held against the
-    plain run on the same slice (:func:`_held`, the statistics equal);
-    ``timed`` adds the ms of a tick a rank and its share in collectives;
-    with ``out_dir`` rank 0 writes the gathered results to ``<tag>.npz``.
-    Returns the report: statistics, launches, local and gathered batch."""
+    per-scenario zones).  The tick is ``make_sharded_tick``'s: compiled on
+    the card (its ``form``: ``"graph"`` under NCCL, ``"staged"`` under
+    gloo), eager on the CPU, where ``standins`` compiles it on the CPU
+    stand-ins that the caller installed (``graph_standins.installed``).
+    Launches are counted on the eager body (a replay runs no Python); a
+    compiled tick is held against it on its first call (the capture) and
+    on a replay, every field and both statistics ``torch.equal``.  On the
+    card the kernel run is held against the plain run on the same slice
+    (:func:`_held`, the statistics equal); ``timed`` adds the ms of a tick
+    a rank (``ms``, the compiled tick's where there is one; ``eager_ms``)
+    and each one's share in collectives (``distributed.collective_share``:
+    on the host clock where they run eagerly, from a profiled replay where
+    a graph holds them); with ``out_dir`` rank 0 writes the gathered
+    results to ``<tag>.npz``.  Returns the report: statistics, launches,
+    local and gathered batch, the compiled tick's form and capture."""
     scen = sc.random_scenarios(lat, batch, seed=seed, n_objects=1,
                                device=dev)
     local = distributed.shard_scenarios(scen, mesh, spatial_axis)
+    zb = zone_case(lat, scen) if zones else None
     tick = sc.make_sharded_tick(lat, mesh, spatial_axis=spatial_axis,
-                                device=dev, zone_block=zone_case(lat, scen)
-                                if zones else None)
-    (res, stats), launches = counted(lambda: tick(local), dev)
+                                device=dev, zone_block=zb)
+    eager = cuda_graph.eager(tick)
+    if standins and tick is eager:
+        tick = sc.compile_sharded_tick(eager, device=dev)
+    (res, stats), launches = counted(lambda: eager(local), dev)
     rep = dict(stats={k: float(v) for k, v in stats.items()},
                launches=launches, local_batch=int(local.start_layer.shape[0]))
+    if tick is not eager:
+        for call in ("capture", "replay"):
+            _same(tick(local), (res, stats), f"{tag} compiled {call}")
+        graphs = list(tick.graphs.values())
+        rep["compiled"] = dict(
+            form=tick.form, equal=True, signatures=len(graphs),
+            warmup_ms=sum(c.warmup_ms for c in graphs),
+            capture_ms=sum(c.capture_ms for c in graphs),
+            pool_mib=sum(c.pool_bytes for c in graphs) / 2 ** 20)
     if dev.type == "cuda":
         tick_p = sc.make_sharded_tick(lat, mesh, spatial_axis=spatial_axis,
                                       device=dev, kernels=False,
-                                      zone_block=zone_case(lat, scen)
-                                      if zones else None)
+                                      zone_block=zb)
         res_p, stats_p = tick_p(local)
         rep["kernels_vs_plain"] = _held(res, res_p, tag)
         if {k: float(v) for k, v in stats_p.items()} != rep["stats"]:
             raise AssertionError(f"{tag}: stats differ kernels vs plain")
     if timed:
-        rep["ms"], rep["collective_share"] = _timing(
-            lambda: tick(local), mesh, dev, 5)
+        rep["eager_ms"] = _timing(lambda: eager(local), dev, 5)
+        rep["eager_collective_share"] = distributed.collective_share(
+            eager, (local,), rep["eager_ms"])["share"]
+        rep["ms"] = _timing(lambda: tick(local), dev, 5)
+        share = distributed.collective_share(tick, (local,), rep["ms"])
+        rep["collective_share"] = share["share"]
+        rep["collective_share_how"] = share["how"]
+        rep["nccl_kernels"] = share.get("nccl_kernels")
     g = distributed.gather_results(
         {k: res[k] for k in EXACT + ("trajs",)}, mesh, spatial_axis)
     rep["batch"] = int(g["trajs"].shape[0])
@@ -350,9 +397,12 @@ def spatial_case(mesh, lats, size, out_dir, dev):
                               dev)
         out, r = spatial_run(f"spatial {name}", mesh, lat, args, dev)
         if size == "chip":
-            r["ms"], r["collective_share"] = _timing(
-                lambda: spatial.spatial_window_dp(lat, mesh, *args), mesh,
-                dev, 5)
+            def window():
+                return spatial.spatial_window_dp(lat, mesh, *args)
+            window.mesh = mesh
+            r["ms"] = _timing(window, dev, 5)
+            r["collective_share"] = distributed.collective_share(
+                window)["share"]
             if mesh.rank == 0:
                 with _Record() as rec:
                     spatial.spatial_window_dp(lat, mesh, *args)
@@ -390,25 +440,43 @@ def main(argv=None):
     rep = dict(rank=rank, world=world, device=str(dev),
                backend=dist.get_backend())
     t0 = time.perf_counter()
+    # the CPU ranks compile their ticks on the stand-ins
+    standins = dev.type == "cpu" and args.size == "small"
+    with (graph_standins.installed() if standins
+          else contextlib.nullcontext()):
+        _cases(rep, args, size, lats, dev, standins)
+    rep["seconds"] = time.perf_counter() - t0
+    dist.barrier()
+    dist.destroy_process_group()
+    print(json.dumps(rep))
+
+
+def _cases(rep, args, size, lats, dev, standins):
+    """The cases a-d of the module docstring into ``rep``."""
     mesh = distributed.DistMesh((4,), ("dp",))
     timed = args.size == "chip"
     rep["a"] = tick_case("a", mesh, lats["oval"], size["batch_dp"], SEED_DP,
-                         None, dev, out_dir=args.out, timed=timed)
+                         None, dev, out_dir=args.out, timed=timed,
+                         standins=standins)
     mesh = distributed.DistMesh((2, 2), ("dp", "mp"))
     rep["b"] = tick_case("b", mesh, lats["oval"], size["batch_composed"],
                          SEED_COMPOSED, "mp", dev, out_dir=args.out,
-                         timed=timed)
+                         timed=timed, standins=standins)
     if args.size == "small":
         rep["b_zones"] = tick_case("b_zones", mesh, lats["oval"],
                                    size["batch_composed"], SEED_COMPOSED,
                                    "mp", dev, out_dir=args.out, zones=True)
     mesh = distributed.DistMesh((4,), ("mp",))
     rep["c"] = spatial_case(mesh, lats, args.size, args.out, dev)
+    if args.size == "chip":
+        rep["c_tick"] = tick_case("c_tick", mesh, lats["mb"],
+                                  size["n_spatial"], SEED_SPATIAL, "mp", dev,
+                                  timed=timed)
     if size["selftest"]:
         os.environ["GLTPL_LOCAL_WORLD_SIZE"] = "2"
         d = distributed.run_multihost_selftest(batch_per_device=4, iters=1,
                                                return_results=True)
-        if rank == 0:
+        if rep["rank"] == 0:
             np.savez(os.path.join(args.out, "d.npz"),
                      **{k: np.asarray(d.pop(k))
                         for k in ("cost", "valid", "traj_sum")})
@@ -416,10 +484,6 @@ def main(argv=None):
             for k in ("cost", "valid", "traj_sum"):
                 d.pop(k)
         rep["d"] = d
-    rep["seconds"] = time.perf_counter() - t0
-    dist.barrier()
-    dist.destroy_process_group()
-    print(json.dumps(rep))
 
 
 def run(out_dir, size="small", cpu=True, backend=None,
@@ -462,13 +526,18 @@ def check(out_dir, reports, size, device) -> dict:
     difference; returns the maxima."""
     lats = lattices(size, device)
     cases = [c for c in ("a", "b", "b_zones") if c in reports[0]]
-    for case in cases:
+    for case in cases + ["c_tick"] * ("c_tick" in reports[0]):
         if any(r[case]["stats"] != reports[0][case]["stats"]
                for r in reports):
             raise AssertionError(f"{case}: ranks disagree on the stats")
+        if any(r[case].get("compiled", {}).get("equal") is False
+               for r in reports):
+            raise AssertionError(f"{case}: a compiled tick differs")
     if device.type == "cuda":
         for r in reports:
             for case, need in CASE_KERNELS.items():
+                if case not in r:
+                    continue
                 cnt = (r[case] if case != "c" else r["c"][
                     SIZES[size]["spatial"][0]])["launches"]
                 if not all(cnt[k] > 0 for k in need) or (
@@ -521,7 +590,8 @@ def check(out_dir, reports, size, device) -> dict:
 def launch(args):
     """``--launch``: :func:`run` then :func:`check` on this process's
     device (the card unless ``--cpu``), one line a case (the ms of a tick
-    a rank and its share in collectives where measured) and one JSON line
+    a rank and its share in collectives where measured, the compiled
+    tick's and the eager tick's) and one JSON line
     of the reports, the maxima and the cards, also written to
     ``DIR/summary.json``."""
     import subprocess
@@ -534,12 +604,20 @@ def launch(args):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
-    for case in ("a", "b", "c"):
+    for case in [c for c in ("a", "b", "c", "c_tick") if c in reports[0]]:
         rs = [r[case] if case != "c" else r["c"][SIZES[args.size][
             "spatial"][0]] for r in reports]
         if "ms" in rs[0]:
+            eager_share = [round(100 * x["eager_collective_share"], 2)
+                           for x in rs] if "compiled" in rs[0] else None
+            compiled = (f"compiled ({rs[0]['compiled']['form']}; eager "
+                        f"{[round(x['eager_ms'], 2) for x in rs]} ms, "
+                        f"collectives {eager_share} %; "
+                        f"{rs[0]['collective_share_how']}, NCCL kernels of "
+                        f"a replay {rs[0]['nccl_kernels']}) "
+                        if "compiled" in rs[0] else "")
             print(f"dist_cases {args.size} {case} on {reports[0]['backend']} "
-                  f"({[r['device'] for r in reports]}; {cards}): "
+                  f"({[r['device'] for r in reports]}; {cards}): {compiled}"
                   f"{max(x['ms'] for x in rs):.2f} ms a tick a rank "
                   f"{[round(x['ms'], 2) for x in rs]}, collectives "
                   f"{[round(100 * x['collective_share'], 2) for x in rs]} "

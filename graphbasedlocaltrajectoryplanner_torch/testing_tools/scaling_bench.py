@@ -9,11 +9,14 @@ The port's counterpart of the root ``scaling_bench.py --multihost``: starts
 ``--ranks`` fresh interpreters (``distributed.launch_ranks``), each runs
 ``distributed.run_multihost_selftest`` (the quick oval lattice,
 ``make_sharded_tick`` over ``make_dist_mesh``, ``--batch-per-rank``
-scenarios a rank), checks that every rank agrees on the fleet statistics
-(they come out of collectives), prints one JSON line and writes it to
-``--out``.  The default backend is NCCL on the cards (one rank a card) and
-gloo with ``--cpu``; ``--backend gloo`` on the card lets several ranks
-share one card.
+scenarios a rank; on the card the compiled tick, one CUDA graph per
+signature holding its collectives under NCCL and captured stages with the
+collectives between them under gloo, ``tick_form`` in the line), checks
+that every rank agrees on the fleet statistics (they come out of
+collectives), prints one JSON line and writes it to ``--out``.  The
+default backend is NCCL on the cards (one rank a card) and gloo with
+``--cpu``; ``--backend gloo`` on the card lets several ranks share one
+card.
 
 On one card, or on one CPU, the ranks share one device: the numbers then
 measure the machinery (process groups, collectives, the ranks' contention
@@ -87,6 +90,8 @@ def main(argv=None):
         / len(reports),
         tick_ms=max(r["tick_ms"] for r in reports),
         collective_share=max(r["collective_share"] for r in reports),
+        collective_share_how=r0["collective_share_how"],
+        tick_form=r0["tick_form"],
         fleet_actions=r0["fleet_actions"],
         fleet_min_cost=r0["fleet_min_cost"], ranks_agree=True,
         note=("ranks share a device: this measures the machinery, not "

@@ -2,7 +2,9 @@
 (gloo on the CPU): ``parallel/distributed.py``, ``make_sharded_tick`` and
 the layer-sharded window DP of ``parallel/spatial.py``, against the port's
 unsharded tick and window DP and against the JAX package's sharded tick
-and spatial DP on its virtual CPU devices.
+and spatial DP on its virtual CPU devices; the four ranks' ticks also
+compiled in the staged form on CPU stand-ins, each equal to its eager
+tick.
 
 Tolerances: the exact fields of the tick (``valid``, ``h_eff``, ``cost``,
 ``n_valid``, ``case_a``, ``relabel``, ``em_base``), window layers,
@@ -193,6 +195,20 @@ def test_four_ranks_agree_on_stats(four_ranks):
     assert reports[0]["d"]["batch"] == 16
     assert [r["d"]["process_index"] for r in reports] == [0, 1, 2, 3]
     print("rank seconds", [round(r["seconds"], 2) for r in reports])
+
+
+def test_four_ranks_compiled_ticks_equal_eager(four_ranks):
+    """Each CPU rank compiled its dp=4 and (dp=2, mp=2) ticks in gloo's
+    staged form on the CPU stand-ins (``testing_tools/graph_standins``)
+    and held each against its eager tick (``dist_cases.tick_case``: every
+    field and both statistics ``torch.equal`` at the capture and on a
+    replay; a rank that differs fails the run)."""
+    reports, _ = four_ranks
+    for r in reports:
+        for case, stages in (("a", 1), ("b", 4)):
+            c = r[case]["compiled"]
+            assert c["form"] == "staged" and c["equal"], (r["rank"], case)
+            assert c["signatures"] == stages, (r["rank"], case)
 
 
 def _unsharded(lat, batch, seed):

@@ -16,7 +16,8 @@ captured as one CUDA graph per input signature (``ops/cuda_graph.py``).
     tick is run.
 
 (b) Capture and replay logic.  ``cuda_graph._cuda`` (the CUDA runtime as
-    the capture uses it) is replaced by CPU stand-ins: the graph records
+    the capture uses it) is replaced by CPU stand-ins
+    (``testing_tools/graph_standins.py``): the graph records
     every aten operator the captured call runs, with its tensors, and a
     replay runs the record again on the same tensors, each result written
     into the tensor the capture made, as a CUDA graph replays its kernels
@@ -42,6 +43,9 @@ from graphbasedlocaltrajectoryplanner_torch.ops import (
 from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as tsc
 from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
     profile_stages)
+# the stand-ins live in the package, where dist_cases' CPU ranks use them
+from graphbasedlocaltrajectoryplanner_torch.testing_tools.graph_standins \
+    import Record as _Record, StandInCuda, StandInGraph  # noqa: F401
 
 from test_torch_tick import _compare, _jax_tick
 from torch_port_common import carry, jax_small_oval
@@ -219,90 +223,6 @@ def test_host_guard_catches_each_kind(monkeypatch):
 
 
 # ---- (b): the capture and replay logic on CPU stand-ins --------------------
-
-class _Record(TorchDispatchMode):
-    """Every aten operator run, with its arguments and its result (the
-    profiler's range markers left out)."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        if func.namespace != "profiler":
-            self.ops.append((func, args, kwargs, out))
-        return out
-
-
-def _write(dst, src):
-    """A replayed result into the tensor the capture made (views and
-    in-place results already live there)."""
-    if torch.is_tensor(dst):
-        if dst.untyped_storage().data_ptr() != \
-                src.untyped_storage().data_ptr():
-            dst.copy_(src)
-    elif isinstance(dst, (list, tuple)):
-        for d, s in zip(dst, src):
-            _write(d, s)
-
-
-class StandInGraph:
-    """``torch.cuda.CUDAGraph`` on the CPU: the recorded operators run
-    again on replay, on the tensors of the capture."""
-
-    def __init__(self):
-        self.ops = None
-        self.replays = 0
-
-    def replay(self):
-        self.replays += 1
-        for func, args, kwargs, out in self.ops:
-            _write(out, func(*args, **kwargs))
-
-
-class _Stream:
-    def wait_stream(self, other):
-        pass
-
-
-class StandInCuda:
-    """The CUDA runtime calls of ``ops/cuda_graph`` on the CPU."""
-
-    def __init__(self):
-        self.made = []
-
-    def CUDAGraph(self):
-        g = StandInGraph()
-        self.made.append(g)
-        return g
-
-    @contextlib.contextmanager
-    def graph(self, g):
-        rec = _Record()
-        with rec:
-            yield
-        g.ops = rec.ops
-
-    def Stream(self, device=None):
-        return _Stream()
-
-    def current_stream(self, device=None):
-        return _Stream()
-
-    def stream(self, s):
-        return contextlib.nullcontext()
-
-    def synchronize(self, device=None):
-        pass
-
-    def empty_cache(self):
-        pass
-
-    def memory_reserved(self, device=None):
-        return 0
-
 
 @pytest.fixture
 def stand_in(monkeypatch):
