@@ -175,7 +175,22 @@ unclosed Monteblanco lattice with the port's builder, then:
    ``blocked`` and ``w_all``, timed in turns.
    Phases 3, 10 and 11 count launches on the eager bodies and read the
    eager sharded ticks' times; the ranks of 10 and 11 run the compiled
-   ticks too.
+   ticks too;
+15. the port's bench and its parity gate: one compiled fb replay at batch
+   1024 under ``torch.profiler`` read with the session started at the
+   call and after a warm-up step (the form of every profile in 2, 6, 12
+   and 14: started at the call, a session lost the first kernels late in
+   a run), twice each, kernel counts and busy ms; then ``python -m
+   graphbasedlocaltrajectoryplanner_torch.bench`` with its defaults in a
+   fresh process (after the kernels are built): exit 0, the five keys of
+   its last line, every key of ``BENCH_DETAILS_torch.json``, one signature
+   in every timed section, the fleet kernels launched by the headline's
+   capture and ``admm_vel`` by the sqp section's, and its parity gate
+   (``testing_tools/cuda_parity``): all seven kernels launched and
+   ``torch.equal`` to their plain versions, the compiled fb and sqp ticks
+   within their bars of the CPU oracle; prints the headline and its three
+   windows, the B=1 percentiles, the sweep, the sqp rate, the stages and
+   each gate's maxima.
 
 The facade's lattice cache, logs and messages go to ``artifacts/chip_smoke/``
 inside the checkout.
@@ -720,11 +735,29 @@ def ragged_admm():
 
 
 def profile_device(fn):
-    """``fn()`` once under ``torch.profiler``: its device kernels (kernel
-    events only: the aten ops that launch them carry the same device time
-    again) as ``dict(n, busy_ms, top, ms_of, count_of)``, ``top`` the six
-    longest by name, ``ms_of(word)`` and ``count_of(word)`` the device time
-    and the number of the kernels whose name holds ``word``."""
+    """``fn()`` under ``torch.profiler``, after one call of ``fn`` as the
+    profiler's warm-up step (``profiling.profiled_ticks``' schedule: a
+    session started at the call lost the first kernels of a compiled
+    replay late in a run, phase 15): its device kernels (kernel events
+    only: the aten ops that launch them carry the same device time again)
+    as ``dict(n, busy_ms, top, ms_of, count_of)``, ``top`` the six longest
+    by name, ``ms_of(word)`` and ``count_of(word)`` the device time and
+    the number of the kernels whose name holds ``word``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return _kernel_summary(prof)
+
+
+def profile_at_call(fn):
+    """:func:`profile_device` with the session started at the call (no
+    warm-up step): the reading phase 15 holds the warm-up form against."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2134,6 +2167,111 @@ def compiled_sharded_phase(card, oval, win_args, md):
     return replay_launches
 
 
+# the port's bench in a fresh process (phase 15): its output directory, and
+# the seconds it may take
+BENCH_OUT = os.path.join(ROOT, "artifacts", "chip_smoke", "bench")
+BENCH_TIMEOUT_S = 420
+
+
+def bench_phase(card, oval):
+    """Phase 15 of the docstring.  Returns the bench's details."""
+    import shutil
+    from graphbasedlocaltrajectoryplanner_torch import bench
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    t_phase = time.perf_counter()
+
+    # (a) one compiled fb replay at B=1024 read at the call and after a
+    # warm-up step of the profiler
+    scen = sc.random_scenarios(oval, B, seed=0, n_objects=1, device="cuda")
+    tick = sc.make_batched_tick(oval, device="cuda")
+    tick(scen)
+    reads = []
+    for form, read in (("at the call", profile_at_call),
+                       ("after a warm-up step", profile_device)) * 2:
+        p = read(lambda: tick(scen))
+        _check(p["n"] > 0, f"profile {form}: no device kernel")
+        reads.append((form, p["n"], p["busy_ms"]))
+    print(f"profile compiled fb replay B={B} on {card}: "
+          + "; ".join(f"{form} {n} device kernels, busy {ms:.3f} ms"
+                      for form, n, ms in reads), flush=True)
+    del tick
+    torch.cuda.empty_cache()
+
+    # (b) the bench, a fresh process after the kernels are built
+    shutil.rmtree(BENCH_OUT, ignore_errors=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "graphbasedlocaltrajectoryplanner_torch.bench",
+         "--out", BENCH_OUT], cwd=ROOT, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    t_bench = time.perf_counter() - t0
+    with open(os.path.join(BENCH_OUT, "bench.log"), "w") as fh:
+        fh.write(r.stdout + r.stderr)
+    _check(r.returncode == 0, f"bench: exit {r.returncode}: "
+           f"{(r.stdout + r.stderr)[-2000:]}")
+    last = json.loads(r.stdout.strip().splitlines()[-1])
+    _check(set(last) == {"metric", "value", "unit", "vs_baseline", "device"}
+           and last["metric"] == bench.METRIC
+           and last["device"]["platform"] == "gpu"
+           and last["device"]["power_limit_w"] > 0, f"bench: last line {last}")
+    with open(os.path.join(BENCH_OUT, bench.DETAILS)) as fh:
+        d = json.load(fh)
+    _check(set(d) == set(bench.KEYS),
+           f"bench: details keys {sorted(set(d) ^ set(bench.KEYS))}")
+    _check(d["kernel_parity_ok"] is True and not d["parity"]["vacuous"],
+           f"bench: the parity gate failed: {d['parity']}")
+    for name, g in d["parity"]["kernels"].items():
+        _check(g["equal"] and g["launches"] > 0, f"bench parity {name}: {g}")
+    for name in FLEET:
+        _check(d["headline"]["launches"][name] > 0,
+               f"bench headline: {name} not launched")
+    _check(d["sqp"]["launches"]["admm_vel"] > 0,
+           "bench sqp: admm_vel not launched")
+    for sec in ["headline", "latency", "multi_opponent", "sqp"] + [
+            f"batch_sweep.{b}" for b in d["batch_sweep"]]:
+        s = d[sec] if "." not in sec else d["batch_sweep"][sec.split(".")[1]]
+        _check(s["signatures"] == 1, f"bench {sec}: {s['signatures']} "
+               f"signatures")
+    h = d["headline"]
+    print(f"bench (fresh process, {t_bench:.1f} s) on {card}: headline "
+          f"{d['throughput_replans_per_sec']:.1f} replans/s (B={h['batch']}, "
+          f"{h['ticks_per_window']} ticks a window: "
+          + ", ".join(f"{dt * 1e3:.3f} ms = {rt:.1f}/s" for dt, rt in zip(
+              h["windows_s"], h["window_replans_per_sec"]))
+          + f"; first call {h['setup_s']:.3f} s, peak allocated "
+          f"{h['peak_mem_bytes'] / 2 ** 20:.1f} MiB, graph pool "
+          f"{h['graphs'][0]['pool_bytes'] / 2 ** 20:.1f} MiB)", flush=True)
+    print(f"bench latency B=1 ({d['latency']['calls']} calls): p50 "
+          f"{d['single_replan_latency_ms_p50']:.3f} ms, p99 "
+          f"{d['single_replan_latency_ms_p99']:.3f} ms; device compute "
+          f"{d['single_replan_device_compute_ms']:.3f} ms; 3 opponents o16 "
+          f"{d['multi_opponent_3veh_o16_replans_per_sec']:.1f} replans/s; "
+          f"sqp {d['sqp_backend_replans_per_sec']:.1f} replans/s "
+          f"(stages {d['sqp_stages']})", flush=True)
+    print("bench sweep: " + "; ".join(
+        f"B={b} {s['replans_per_sec']:.1f} replans/s (windows "
+        + ", ".join(f"{dt * 1e3:.2f}" for dt in s["windows_s"])
+        + f" ms of {s['ticks_per_window']} ticks, pool "
+        f"{s['graphs'][0]['pool_bytes'] / 2 ** 20:.0f} MiB)"
+        for b, s in d["batch_sweep"].items())
+        + f"; window DP {d['window_dp_gb_per_s_at_peak_batch']:.1f} GB/s "
+        f"at the peak batch", flush=True)
+    print(f"bench stages (device ms by range, B={h['batch']}): "
+          f"{d['stages']['trace']['stage_ms']}; compiled prefixes (host ms) "
+          f"{d['stages']['cumulative']['stage_ms']}", flush=True)
+    print("bench parity kernels (torch.equal to the plain version, "
+          "launches): " + ", ".join(
+              f"{n} {g['equal']} x{g['launches']}"
+              for n, g in d["parity"]["kernels"].items()), flush=True)
+    for k in ("end_to_end", "end_to_end_sqp"):
+        g = d["parity"][k]
+        print(f"bench parity {k}: card tick against the CPU oracle max|d xy| "
+              f"{g['max_dxy_m']:.3g} m (bar {g['bar_dxy']}), max|d v| "
+              f"{g['max_dv_mps']:.3g} m/s (bar {g['bar_dv']})", flush=True)
+    print(f"bench phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return d
+
+
 def main():
     t_run = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2867,10 +3005,13 @@ def main():
 
     # ---- 17. the compiled sharded tick and dense window -------------------
     sharded_replay = compiled_sharded_phase(card, oval, win_args, md)
+
+    # ---- 18. the port's bench and its parity gate, a fresh process --------
+    bench_d = bench_phase(card, oval)
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all",
           flush=True)
 
-    # ---- 18. summary lines ------------------------------------------------
+    # ---- 19. summary lines ------------------------------------------------
     rows = []
     for name, path, src, repl in KERNELS:
         s = stats[name]
@@ -2913,6 +3054,8 @@ def main():
                          launches_sharded_dp2_mp2_rank=md["rank"]["b"][name],
                          launches_spatial_mp4_rank=md["rank"]["c"][name],
                          launches_entry_tick=et["entry"][name],
+                         launches_bench_parity=bench_d["parity"]["kernels"][
+                             name]["launches"],
                          launches_dryrun_dp4_rank=et["dryrun"]["dp"][name],
                          launches_dryrun_spatial_mp4_rank=et["dryrun"][
                              "spatial"][name],

@@ -112,6 +112,42 @@ def load(name: str):
     return fn
 
 
+# each kernel's name and its wrapper (module and function under ops/), whose
+# ``launches`` the wrapper moves where it launches the kernel
+KERNEL_WRAPPERS = dict(
+    hit_slab="cuda_collision.hit_slab",
+    window_dp="cuda_window.fused_window_dp",
+    backtrace="cuda_backtrace.backtrace_walk",
+    vel_scan_cgg="cuda_velocity.vel_scan_cgg",
+    vel_scan="cuda_velocity.vel_scan",
+    minplus="cuda_minplus.minplus_scan",
+    admm_vel="cuda_admm.admm_vel")
+
+
+def wrappers() -> dict:
+    """Each kernel's wrapper by name (:data:`KERNEL_WRAPPERS`)."""
+    import importlib
+    out = {}
+    for name, path in KERNEL_WRAPPERS.items():
+        mod, fn = path.split(".")
+        out[name] = getattr(importlib.import_module(
+            f"{__package__}.{mod}"), fn)
+    return out
+
+
+def counted(fn, dev):
+    """``fn()`` with every kernel's launch count set to 0 just before it
+    and read just after (synchronised on the card):
+    ``(out, {name: launches})``."""
+    ws = wrappers()
+    for w in ws.values():
+        w.launches = 0
+    out = fn()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, {name: w.launches for name, w in ws.items()}
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -57,8 +57,7 @@ import torch.distributed as dist
 from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
 from graphbasedlocaltrajectoryplanner_torch.models import track as tt
 from graphbasedlocaltrajectoryplanner_torch.ops import (
-    cuda_admm, cuda_backtrace, cuda_collision, cuda_graph, cuda_minplus,
-    cuda_velocity, cuda_window)
+    cuda_build, cuda_collision, cuda_graph, cuda_minplus)
 from graphbasedlocaltrajectoryplanner_torch.ops.search import FEAS_THRESH
 from graphbasedlocaltrajectoryplanner_torch.parallel import distributed
 from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
@@ -94,15 +93,6 @@ CASE_KERNELS = {
     "c_tick": ("hit_slab", "backtrace", "vel_scan_cgg", "vel_scan",
                "minplus"),
 }
-# each kernel's name (as in chip_smoke.py) and its wrapper
-KERNEL_PATHS = dict(
-    hit_slab="cuda_collision.hit_slab",
-    window_dp="cuda_window.fused_window_dp",
-    backtrace="cuda_backtrace.backtrace_walk",
-    vel_scan_cgg="cuda_velocity.vel_scan_cgg",
-    vel_scan="cuda_velocity.vel_scan",
-    minplus="cuda_minplus.minplus_scan",
-    admm_vel="cuda_admm.admm_vel")
 
 
 def lattices(size: str, device) -> dict:
@@ -204,26 +194,6 @@ def check_spatial_against_scan(lat, args, out, kernels=False) -> dict:
                 bp_equal=bool(torch.equal(ref["bp"], out["bp"])))
 
 
-def _wrappers():
-    mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
-                cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity,
-                cuda_minplus=cuda_minplus, cuda_admm=cuda_admm)
-    return {name: getattr(mods[p.split(".")[0]], p.split(".")[1])
-            for name, p in KERNEL_PATHS.items()}
-
-
-def counted(fn, dev):
-    """``fn()`` with every kernel's launch count set to 0 just before it
-    and read just after: ``(out, {name: launches})``."""
-    ws = _wrappers()
-    for w in ws.values():
-        w.launches = 0
-    out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return out, {name: w.launches for name, w in ws.items()}
-
-
 def _held(res_k, res_p, what):
     """A kernel run against the plain run on the same rank: exact fields
     equal, trajectories within 2 mm and 0.02 m/s."""
@@ -308,7 +278,7 @@ def tick_case(tag, mesh, lat, batch, seed, spatial_axis, dev, *,
     eager = cuda_graph.eager(tick)
     if standins and tick is eager:
         tick = sc.compile_sharded_tick(eager, device=dev)
-    (res, stats), launches = counted(lambda: eager(local), dev)
+    (res, stats), launches = cuda_build.counted(lambda: eager(local), dev)
     rep = dict(stats={k: float(v) for k, v in stats.items()},
                launches=launches, local_batch=int(local.start_layer.shape[0]))
     if tick is not eager:
@@ -350,7 +320,7 @@ def spatial_run(tag, mesh, lat, args, dev):
     """``spatial_window_dp`` of ``args`` over the ``mp`` axis of ``mesh``,
     its launches counted; on the card held against the plain run on the
     same inputs (every table equal).  Returns ``(tables, report)``."""
-    out, launches = counted(
+    out, launches = cuda_build.counted(
         lambda: spatial.spatial_window_dp(lat, mesh, *args), dev)
     if dev.type == "cuda":
         out_p = spatial.spatial_window_dp(lat, mesh, *args, kernels=False)

@@ -17,6 +17,9 @@ Writes ``<out>/SQP_PROFILE_torch.json`` with
     (``parallel/profiling.stage_timings_trace``, as
     ``testing_tools/profile_stages.py --sqp``, on the eager body; None on
     the CPU, where no device is traced);
+  * :func:`trace_attribution` (the root ``profile_sqp.trace_attribution``,
+    which the port's bench calls): the warm-started sqp tick's device ms
+    by stage;
   * :func:`qp_micro`: the batched velocity QPs alone, ``ops/qp.qp_vel_profile``
     at the fleet shape (5 rows a scenario of ``--m`` points) at 60 and at 5
     ADMM iterations on the device clock, and from the two the time of one
@@ -62,6 +65,40 @@ def isolated_ms(fn, reps: int, dev: torch.device) -> float:
             fn()
             ts.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(ts))
+
+
+# the stage names of the root profile_sqp.SQP_SCOPES, where the port's
+# profiling.SCOPE_TO_STAGE names them otherwise
+SQP_STAGE_NAMES = {"velocity": "velocity_other"}
+
+
+def trace_attribution(tick, scen, iters: int = 3):
+    """Device ms of the warm-started sqp fleet tick ``tick`` on ``scen`` by
+    stage
+    (window, assembly, qp_setup, qp_factor, qp_iters, velocity_other,
+    other), per tick: ``profiling.profiled_ticks`` on the tick's eager body
+    (``tick.__wrapped__`` on the card; one tick under the profiler before
+    the ``iters`` it records, each tick starting from the previous tick's
+    profiles) and ``profiling.attribute``.
+
+    :returns: dict(stage_ms, total_ms); None on the CPU, where no device is
+        traced.  On the card a trace without device time raises.
+    """
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
+    from graphbasedlocaltrajectoryplanner_torch.parallel import profiling
+    dev = scen.start_layer.device
+    if dev.type != "cuda":
+        return None
+    prof, _, _ = profiling.profiled_ticks(cuda_graph.eager(tick), scen, iters,
+                                          dev, warm_sqp=True)
+    stage_ms, _, _ = profiling.attribute(prof.events(), iters)
+    total = sum(stage_ms.values())
+    if total <= 0:
+        raise RuntimeError("trace_attribution: the profiler traced no "
+                           "device time")
+    return dict(stage_ms={SQP_STAGE_NAMES.get(k, k): round(v, 3)
+                          for k, v in sorted(stage_ms.items())},
+                total_ms=round(total, 3))
 
 
 def qp_inputs(batch5: int, m: int, dev: torch.device):

@@ -39,7 +39,8 @@ _BLOCKED_IMPORT = textwrap.dedent("""
 # modules of the interactive path, of kernel 6, of the SQP backend, of the
 # stage profiler, the log replay and the perception link, of the plot, the
 # log viewer, the examples, the native library and the profiling tools,
-# of the multi-device tick, and the entry tools (beside the fleet tick's)
+# of the multi-device tick, the entry tools, and the bench and its parity
+# gate (beside the fleet tick's)
 _NEW_MODULES = (
     "ops.cuda_minplus", "planner.handler", "planner.facade",
     "planner.hostmath", "planner.objects", "utils.veh_dyn", "utils.logging",
@@ -52,7 +53,7 @@ _NEW_MODULES = (
     "testing_tools.profile_tick", "testing_tools.profile_assembly",
     "testing_tools.profile_sqp", "parallel.distributed", "parallel.spatial",
     "testing_tools.dist_cases", "testing_tools.scaling_bench", "entry",
-    "testing_tools.validate_tracks")
+    "testing_tools.validate_tracks", "bench", "testing_tools.cuda_parity")
 
 
 def test_port_imports_without_jax():
