@@ -1,0 +1,9 @@
+"""Device ms a compiled fleet tick in the velocity stage and the
+emergency profile, read from the program's own timing events inside the
+traced graph (median of the stage pass, ``benchmark/program_trace.py``)."""
+
+from benchmark import program_trace
+
+
+def read(ctx):
+    return program_trace.stage(ctx, "velocity")

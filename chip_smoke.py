@@ -79,9 +79,9 @@ unclosed Monteblanco lattice with the port's builder, then:
    ``p_max`` (naming the ADMM design that ran); the stage profile
    (``parallel/profiling.py``): the fb and the warm sqp tick's device
    time, host time and launches by ``gltpl.*`` range, and the fb tick's
-   cumulative stage times; the log replay (``utils/replay.py``) of the
-   data log that the oval facade drive of 4 wrote, with the kernels and
-   with the plain versions, equal reports;
+   stage times from its traced replays; the log replay
+   (``utils/replay.py``) of the data log that the oval facade drive of 4
+   wrote, with the kernels and with the plain versions, equal reports;
 9. the host side: the min example's loop (``examples/main_min_example``,
    default oval) and the std example's (``examples/main_std_example``,
    unclosed Monteblanco with its opponent, zone and logging) through
@@ -968,8 +968,9 @@ def options_phase(oval, scen, card, wrapper, fb_prof):
           f"fb tick, {len(traces['sqp warm']['scopes']) - 1} a sqp tick",
           flush=True)
     st = profiling.stage_timings(oval, scen)
-    print(f"stage timings tick oval_1opp fb B={B} on {card} (host clock, "
-          f"synchronised; median of 3 windows of 10): {st['stage_ms']} ms, "
+    print(f"stage timings tick oval_1opp fb B={B} on {card} (device "
+          f"clock, the compiled tick's traced replays; median of 10): "
+          f"{st['stage_ms']} ms, "
           f"total {st['total_ms']} ms; shares {st['stage_share']}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2257,7 +2258,7 @@ def bench_phase(card, oval):
         + f"; window DP {d['window_dp_gb_per_s_at_peak_batch']:.1f} GB/s "
         f"at the peak batch", flush=True)
     print(f"bench stages (device ms by range, B={h['batch']}): "
-          f"{d['stages']['trace']['stage_ms']}; compiled prefixes (host ms) "
+          f"{d['stages']['trace']['stage_ms']}; traced replays (device ms) "
           f"{d['stages']['cumulative']['stage_ms']}", flush=True)
     print("bench parity kernels (torch.equal to the plain version, "
           "launches): " + ", ".join(

@@ -25,7 +25,7 @@ Sections, in the root bench's order (scenario seeds as offsets from
   e. the sqp backend (``vp_backend="sqp"``, ``sqp_m=115``), and the
      device time by stage of its warm-started eager tick
      (``profile_sqp.trace_attribution``);
-  f. the stage times of the compiled prefixes
+  f. the stage times of the compiled tick's traced replays
      (``profiling.stage_timings``) and the device time by ``gltpl.*``
      range (``profiling.stage_timings_trace``), with the roofline's rates
      from the traced stages;
@@ -334,7 +334,7 @@ def run(lat, args, dev) -> dict:
     d["sqp_backend_replans_per_sec"] = d["sqp"]["replans_per_sec"]
     _release(dev)
 
-    # ---- f. stage times of the compiled prefixes (timed) -----------------
+    # ---- f. stage times of the compiled tick's traced replays -----------
     cum = profiling.stage_timings(lat, scen_a,
                                   iters=min(STAGE_ITERS, args.iters),
                                   device=dev)

@@ -16,7 +16,9 @@ there, ``None`` included.  The first call of a signature captures it:
    ``cudaFuncSetAttribute`` calls are made, lazily loaded modules come in
    and the caching allocator has its blocks;
 3. ``fn`` runs once more under ``torch.cuda.graph`` into a new
-   ``torch.cuda.CUDAGraph`` with its own memory pool;
+   ``torch.cuda.CUDAGraph`` with its own memory pool, kept after the
+   capture (``keep_graph=True``) so that its nodes are counted before it
+   is instantiated;
 4. the graph is replayed and its outputs returned, so a capture fault shows
    on the first call.
 
@@ -49,11 +51,25 @@ and not on replay; the eager function stays reachable as ``__wrapped__``
 (``functools.wraps``), as ``jax.jit(f).__wrapped__`` is ``f``, and inside
 :func:`disabled` every captured callable runs it, as every jitted function
 runs op by op inside ``jax.disable_jit()``.
+
+Measurement.  The tick's stages open :func:`span` ranges (the ``gltpl.*``
+names of ``parallel/profiling.py``), which a replay does not show to the
+profiler: it runs neither their Python nor their launch calls.  Inside
+:func:`tracing` a call files its signature apart from the untraced one and
+captures a graph of its own, in which each span's entry and exit and the
+graph's first and last node record a timing event (event-record nodes of
+the graph); ``report()`` reads the last replay's device ms by span from
+them, and the call's copy-in, replay, clone-out, warm-up and capture run
+inside host spans ``gltpl.call.*`` for the profiler.  Outside it the
+graph is the untraced one, node for node, and a replay tests one flag.
+Counters are always on: ``captures``, ``replays`` and ``eager_calls`` of a
+captured callable, and each graph's nodes by type, read once at capture.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -61,14 +77,62 @@ import numbers
 import time
 
 import torch
+from torch.profiler import record_function
 
-# the CUDA runtime as the capture uses it (streams, graphs, the caching
-# allocator); the CPU tests put stand-ins here
-_cuda = torch.cuda
+# the graph node types that the counters name (CUDA's graph node type
+# numbers); every other type counts as "other"
+NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 7: "event_record"}
+
+
+def graph_node_types(graph) -> list:
+    """The type number of every node of a captured ``torch.cuda.CUDAGraph``
+    that keeps its graph (``keep_graph=True``), read with the CUDA
+    driver's ``cuGraphGetNodes`` and ``cuGraphNodeGetType``."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _driver(lib.cuGraphGetNodes(handle, None, ctypes.byref(n)),
+            "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _driver(lib.cuGraphGetNodes(handle, nodes, ctypes.byref(n)),
+            "cuGraphGetNodes")
+    kind = ctypes.c_int(0)
+    out = []
+    for node in nodes[:n.value]:
+        _driver(lib.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)),
+                "cuGraphNodeGetType")
+        out.append(kind.value)
+    return out
+
+
+def _driver(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA driver error {rc}")
+
+
+class _Runtime:
+    """``torch.cuda`` and the graph node query: the CUDA runtime as the
+    capture uses it."""
+
+    def __getattr__(self, name):
+        return getattr(torch.cuda, name)
+
+    graph_node_types = staticmethod(graph_node_types)
+
+
+# the CUDA runtime as the capture uses it (streams, graphs, events, the
+# caching allocator, the graph node query); the CPU tests put stand-ins here
+_cuda = _Runtime()
 # the depth of nested disabled() blocks
 _disabled = 0
 # the depth of captures under way (see capturing())
 _capturing = 0
+# the depth of nested tracing() blocks
+_tracing = 0
+# the traced CapturedCall whose capture is under way: its spans record
+# events
+_recording = None
 
 
 @contextlib.contextmanager
@@ -83,6 +147,53 @@ def disabled():
         yield
     finally:
         _disabled -= 1
+
+
+@contextlib.contextmanager
+def tracing():
+    """Inside the block every captured callable runs the traced graph of
+    the call's signature (captured at its first traced call): the spans'
+    and the graph's timing events are nodes of it, and the call's host
+    work runs inside ``gltpl.call.*`` spans.  Outside it the untraced
+    graphs run as they were captured."""
+    global _tracing
+    _tracing += 1
+    try:
+        yield
+    finally:
+        _tracing -= 1
+
+
+class _Span:
+    """A ``record_function`` range that, in a traced capture, also
+    records a timing event at its entry and its exit."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = record_function(name)
+        self.call = self.index = None
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.call = _recording
+        if self.call is not None:
+            self.index = self.call._open(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        if self.call is not None:
+            self.call._close(self.index)
+        return self.range.__exit__(*exc)
+
+
+def span(name: str):
+    """The range ``name`` around a stage of a captured body: the
+    profiler's ``record_function`` range, and inside :func:`tracing`, while
+    a graph is captured, a pair of timing events in the graph too (see
+    ``CapturedCall.report``)."""
+    if not _tracing:
+        return record_function(name)
+    return _Span(name)
 
 
 def capturing() -> bool:
@@ -161,12 +272,20 @@ def _build(spec, tensors):
 
 
 class CapturedCall:
-    """One signature's graph: its static inputs and outputs, and what the
+    """One signature's graph: its static inputs and outputs, what the
     capture cost (``warmup_ms``, ``capture_ms`` on the host clock,
     ``pool_bytes`` the device memory the caching allocator reserved for
-    the graph's pool)."""
+    the graph's pool), its nodes by type (``nodes``, ``kernel_nodes``) and
+    its ``replays``.  A ``traced`` graph (captured inside :func:`tracing`)
+    holds the timing events of its spans (``spans``: name, the index of
+    the enclosing span or None, entry and exit event, in capture order)
+    and of its first and last node (``bounds``)."""
 
-    def __init__(self, fn, spec, tensors, device: torch.device):
+    def __init__(self, fn, spec, tensors, device: torch.device,
+                 traced: bool = False, n: int = 0):
+        self.traced = traced
+        self.replays = 0
+        self.spans, self.bounds, self._open_spans = [], None, []
         self.static_in = [torch.empty(t.shape, dtype=t.dtype, device=device)
                           for t in tensors]
         self._copy_in(tensors)
@@ -175,7 +294,7 @@ class CapturedCall:
         side = _cuda.Stream(device)
         side.wait_stream(cur)
         t0 = time.perf_counter()
-        with _cuda.stream(side):
+        with self._host("gltpl.call.warmup", n), _cuda.stream(side):
             fn(*args, **kwargs)
         cur.wait_stream(side)
         _cuda.synchronize(device)
@@ -184,53 +303,146 @@ class CapturedCall:
         _cuda.empty_cache()
         reserved = _cuda.memory_reserved(device)
         t0 = time.perf_counter()
-        self.graph = _cuda.CUDAGraph()
-        global _capturing
+        # the graph is kept after capture, for its node count
+        self.graph = _cuda.CUDAGraph(keep_graph=True)
+        global _capturing, _recording
         _capturing += 1
+        outer, _recording = _recording, (self if traced else None)
         try:
-            with _cuda.graph(self.graph):
+            with self._host("gltpl.call.capture", n), \
+                    _cuda.graph(self.graph):
+                if traced:
+                    self.bounds = (self._event(), None)
                 out = fn(*args, **kwargs)
+                if traced:
+                    self.bounds = (self.bounds[0], self._event())
         finally:
             _capturing -= 1
+            _recording = outer
+        types = _cuda.graph_node_types(self.graph)
+        self.graph.instantiate()
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.pool_bytes = _cuda.memory_reserved(device) - reserved
+        self.nodes = dict.fromkeys(("kernel", "memcpy", "memset",
+                                    "event_record", "other"), 0)
+        for t in types:
+            self.nodes[NODE_TYPES.get(t, "other")] += 1
+        self.kernel_nodes = self.nodes["kernel"]
         self.static_out = []
         self.out_spec = _flatten(out, self.static_out)
+
+    def _host(self, name: str, n: int):
+        """The host span ``name`` of call ``n`` in a traced graph."""
+        if self.traced:
+            return record_function(name, str(n))
+        return contextlib.nullcontext()
+
+    @staticmethod
+    def _event():
+        ev = _cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        return ev
+
+    def _open(self, name: str) -> int:
+        parent = self._open_spans[-1] if self._open_spans else None
+        self.spans.append([name, parent, self._event(), None])
+        self._open_spans.append(len(self.spans) - 1)
+        return len(self.spans) - 1
+
+    def _close(self, index: int) -> None:
+        self.spans[index][3] = self._event()
+        self._open_spans.pop()
 
     def _copy_in(self, tensors):
         for s, t in zip(self.static_in, tensors):
             s.copy_(t)
 
-    def __call__(self, tensors):
-        self._copy_in(tensors)
-        self.graph.replay()
+    def _clone_out(self):
         return _build(self.out_spec, iter([t.clone()
                                            for t in self.static_out]))
+
+    def __call__(self, tensors, n: int = 0):
+        self.replays += 1
+        if not self.traced:
+            self._copy_in(tensors)
+            self.graph.replay()
+            return self._clone_out()
+        arg = str(n)
+        with record_function("gltpl.call.copy_in", arg):
+            self._copy_in(tensors)
+        with record_function("gltpl.call.replay", arg):
+            self.graph.replay()
+        with record_function("gltpl.call.clone_out", arg):
+            return self._clone_out()
+
+    def report(self) -> dict:
+        """What this graph cost and holds, and for a traced graph the
+        device ms of its last replay: ``ranges`` (per span name its
+        inclusive ms summed over its occurrences, the name of the span
+        around its first occurrence or None, and its count), ``graph_ms``
+        (first node to last) and ``other_ms`` (``graph_ms`` less the
+        outermost spans).  Read after the stream has synchronised: the
+        reading itself never waits for the device."""
+        rep = dict(traced=self.traced, replays=self.replays,
+                   warmup_ms=self.warmup_ms, capture_ms=self.capture_ms,
+                   pool_bytes=self.pool_bytes,
+                   kernel_nodes=self.kernel_nodes, nodes=dict(self.nodes))
+        if not (self.traced and self.replays):
+            return rep
+        ranges, outer = {}, 0.0
+        for name, parent, a, b in self.spans:
+            ms = a.elapsed_time(b)
+            r = ranges.setdefault(name, dict(
+                ms=0.0, count=0,
+                parent=None if parent is None else self.spans[parent][0]))
+            r["ms"] += ms
+            r["count"] += 1
+            outer += ms if parent is None else 0.0
+        graph_ms = self.bounds[0].elapsed_time(self.bounds[1])
+        rep.update(ranges=ranges, graph_ms=graph_ms,
+                   other_ms=graph_ms - outer)
+        return rep
 
 
 def capture(fn, device=None):
     """``fn`` captured as one CUDA graph per input signature (see the
     module docstring).  The static buffers live on ``device`` (default the
     current CUDA device); tensors given on another device are copied there.
-    The callable's ``graphs`` maps each signature to its
-    :class:`CapturedCall`; ``__wrapped__`` is ``fn``, which every call
-    inside :func:`disabled` runs instead."""
+    The callable's ``graphs`` maps each signature and whether it is traced
+    (:func:`tracing`) to its :class:`CapturedCall`; ``__wrapped__`` is
+    ``fn``, which every call inside :func:`disabled` runs instead.  Its
+    counters: ``captures``, ``replays`` (every call outside
+    :func:`disabled`, the capturing calls included) and ``eager_calls``
+    (the calls inside it); ``report()`` gives them with every graph's
+    :meth:`CapturedCall.report`, in capture order."""
     device = torch.device("cuda" if device is None else device)
     graphs = {}
 
     @functools.wraps(fn)
     def captured(*args, **kwargs):
         if _disabled:
+            captured.eager_calls += 1
             return fn(*args, **kwargs)
+        captured.replays += 1
         tensors = []
         spec = _flatten((args, dict(sorted(kwargs.items()))), tensors)
-        call = graphs.get(spec)
+        key = (spec, _tracing > 0)
+        call = graphs.get(key)
         if call is None:
-            call = CapturedCall(fn, spec, tensors, device)
-            graphs[spec] = call
-        return call(tensors)
+            call = CapturedCall(fn, spec, tensors, device, key[1],
+                                captured.replays)
+            graphs[key] = call
+            captured.captures += 1
+        return call(tensors, captured.replays)
+
+    def report() -> dict:
+        return dict(captures=captured.captures, replays=captured.replays,
+                    eager_calls=captured.eager_calls,
+                    graphs=[c.report() for c in graphs.values()])
 
     captured.graphs = graphs
+    captured.captures = captured.replays = captured.eager_calls = 0
+    captured.report = report
     return captured
 
 

@@ -26,7 +26,6 @@ matrices is the oracle of the tests.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
@@ -153,7 +152,7 @@ def admm_vel_qp(d: dict, iters: int = 60, sigma: float = 1e-6,
     ua, ud = d["u_acc"], d["u_dec"]
     n = q.shape[-1]
 
-    with record_function("gltpl.qp_factor"):
+    with cuda_graph.span("gltpl.qp_factor"):
         # K = P + sigma I + A' rho A bands; P = I + w_smooth D'D
         dd = torch.full((n,), 2.0, dtype=q.dtype, device=q.device)
         dd[0] = 1.0
@@ -173,7 +172,7 @@ def admm_vel_qp(d: dict, iters: int = 60, sigma: float = 1e-6,
     def clip(x, lo, hi):
         return torch.minimum(torch.maximum(x, lo), hi)
 
-    with record_function("gltpl.qp_iters"):
+    with cuda_graph.span("gltpl.qp_iters"):
         lo_dyn = torch.full_like(ua, -_BIG)
         x = x0
         z_b, z_a, z_d = Ax(x)
@@ -351,7 +350,7 @@ def qp_vel_profile(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
         previous solution); None starts from the relaxed optimum.
     :returns: (v (..., P), residuals dict of :func:`admm_vel_qp`)
     """
-    with record_function("gltpl.qp_setup"):
+    with cuda_graph.span("gltpl.qp_setup"):
         d = _vel_qp_data(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
                          v_start, v_end=v_end, end_idx=end_idx,
                          drag_coeff=drag_coeff, m_veh=m_veh, pin_idx=pin_idx,
@@ -360,7 +359,7 @@ def qp_vel_profile(kappa, el_lengths, loc_gg, ax_max_machines, v_max,
         from graphbasedlocaltrajectoryplanner_torch.ops.cuda_admm import (
             admm_vel)
         # one launch factors and iterates: gltpl.qp_factor stays empty
-        with record_function("gltpl.qp_iters"):
+        with cuda_graph.span("gltpl.qp_iters"):
             x_n, res = admm_vel(d, iters=iters, w_smooth=w_smooth)
     else:
         x_n, res = admm_vel_qp(d, iters=iters, w_smooth=w_smooth)

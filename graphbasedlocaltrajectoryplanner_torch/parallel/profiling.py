@@ -1,9 +1,10 @@
 """Per-stage timing and attribution of the batched fleet tick (torch) —
 counterpart of the JAX package's ``parallel/profiling.py``.
 
-The tick marks its stages with ``torch.profiler.record_function`` ranges,
-the JAX package's ``jax.named_scope`` names with two renamed for the
-kernels that replace its Pallas calls:
+The tick marks its stages with ``ops/cuda_graph.span`` ranges (each a
+``torch.profiler.record_function`` range, and in a traced capture a pair
+of timing events in the graph), the JAX package's ``jax.named_scope``
+names with two renamed for the kernels that replace its Pallas calls:
 
     JAX scope                   port range              stage
     gltpl.object_selection      gltpl.object_selection  window
@@ -27,14 +28,15 @@ whole solve there and ``gltpl.qp_factor`` is empty; the plain ADMM
 (``qp.admm_vel_qp``) fills both.  The ranges stay outside the kernels'
 wrappers, so a CUDA-graph capture of a wrapper call sees none of them.
 
-:func:`stage_timings` times the cumulative stages through
+:func:`stage_timings` reads, on the card, the compiled fleet tick's own
+traced replays (``ops/cuda_graph.tracing`` and ``tick.report()``: device
+ms by range from timing events inside the graph); on the CPU and on the
+plain path it times the cumulative stages through
 ``scenario._batched_window`` and the ``until="assembly"`` cutoff of
-``scenario.scenario_tick``, each compiled on the card as the fleet tick is
-(``ops/cuda_graph.capture_on_card``: one CUDA graph a prefix), as the JAX
-package times jitted prefixes; :func:`stage_timings_trace` gives every
-device kernel of the real tick to the innermost range that launched it,
-and so runs the tick's eager body (``tick.__wrapped__``), whose ranges and
-launches a graph replay does not show.
+``scenario.scenario_tick`` on the host clock.  :func:`stage_timings_trace`
+gives every device kernel of the real tick to the innermost range that
+launched it, and so runs the tick's eager body (``tick.__wrapped__``),
+whose ranges and launches a graph replay does not show the profiler.
 """
 
 from __future__ import annotations
@@ -97,17 +99,44 @@ def _setup(lat, scen, device):
     return lat, scen, dev
 
 
+def _replay_stages(lat, scen, iters, p_max, dev):
+    """Median device ms by stage and of the whole graph over ``iters``
+    traced replays of the compiled fleet tick, each read after a device
+    synchronise from ``tick.report()``: a stage is the outermost ranges
+    that :data:`SCOPE_TO_STAGE` puts in it."""
+    tick = sc.make_batched_tick(lat, True, device=dev, p_max=p_max)
+    stage, total = {k: [] for k in ("window", "assembly", "velocity")}, []
+    with cuda_graph.tracing():
+        tick(scen)
+        for _ in range(iters):
+            tick(scen)
+            _sync(dev)
+            rep = [g for g in tick.report()["graphs"] if g["traced"]][0]
+            for st in stage:
+                stage[st].append(sum(
+                    r["ms"] for name, r in rep["ranges"].items()
+                    if r["parent"] is None
+                    and SCOPE_TO_STAGE.get(name) == st))
+            total.append(rep["graph_ms"])
+    return ({k: float(np.median(v)) / 1e3 for k, v in stage.items()},
+            float(np.median(total)))
+
+
 @torch.no_grad()
 def stage_timings(lat, scen, iters: int = 10, kernels: bool = True,
                   p_max: int = None, *, device=None):
-    """Time the three stages of the fleet tick (host clock, synchronised)
-    and derive a roofline-style account, as the JAX package's
-    ``stage_timings``.  On the card with the kernels each timed prefix is
-    compiled (captured as a CUDA graph on its first call, replayed after),
-    as the JAX package jits them; on the CPU and with ``kernels=False``
-    they run eagerly.
+    """Time the three stages of the fleet tick and derive a
+    roofline-style account, as the JAX package's ``stage_timings``.
 
-    Stages (cumulative variants; deltas reported):
+    On the card with the kernels the stages are read from the compiled
+    tick itself: ``iters`` traced replays (``ops/cuda_graph.tracing``),
+    each stage the median device ms of its outermost ``gltpl.*`` ranges
+    (:data:`SCOPE_TO_STAGE`) and ``total_ms`` the median of the whole
+    graph's, which holds what no range does.  On the CPU and with
+    ``kernels=False`` the cumulative prefixes run eagerly on the host
+    clock (synchronised, median of 3 windows of ``iters``), as the JAX
+    package times its jitted prefixes:
+
       1. ``window``   — obstacle selection, slab hit masks, the window DP
                         and the virtual-goal vectors (``_batched_window``);
       2. ``assembly`` — the decision tree, backtrace, C2-refit assembly and
@@ -122,27 +151,34 @@ def stage_timings(lat, scen, iters: int = 10, kernels: bool = True,
     if p_max is None:
         p_max = sc.default_p_max(lat)
     B = int(scen.start_layer.shape[0])
-    zone = torch.zeros((lat.L, lat.N), dtype=torch.bool, device=dev)
-    w_last = torch.tensor(sc.W_LAST_FACTORS, dtype=torch.float32, device=dev)
-    packed = sc.pg.packed_edge_table(lat)
+    if dev.type == "cuda" and kernels:
+        t, total = _replay_stages(lat, scen, iters, p_max, dev)
+        t_win, t_asm = t["window"], t["assembly"]
+        ms = {k: v * 1e3 for k, v in t.items()}
+        clock = ("device clock: timing events in the compiled tick's "
+                 "traced replays")
+    else:
+        zone = torch.zeros((lat.L, lat.N), dtype=torch.bool, device=dev)
+        w_last = torch.tensor(sc.W_LAST_FACTORS, dtype=torch.float32,
+                              device=dev)
+        packed = sc.pg.packed_edge_table(lat)
 
-    def window(s):
-        return sc._batched_window(lat, s, zone, w_last, kernels=kernels)
+        def window(s):
+            return sc._batched_window(lat, s, zone, w_last, kernels=kernels)
 
-    def tick(s, pre, until):
-        return sc.scenario_tick(lat, s, p_max=p_max, precomputed=pre,
-                                until=until, kernels=kernels, packed=packed)
+        def tick(s, pre, until):
+            return sc.scenario_tick(lat, s, p_max=p_max, precomputed=pre,
+                                    until=until, kernels=kernels,
+                                    packed=packed)
 
-    window = cuda_graph.capture_on_card(window, dev, kernels)
-    tick = cuda_graph.capture_on_card(tick, dev, kernels)
-    t_win, (obs, win) = _time(window, scen, iters=iters, dev=dev)
-    pre = dict(obs=obs, window=win)
-    t_asm, _ = _time(tick, scen, pre, "assembly", iters=iters, dev=dev)
-    t_full, _ = _time(tick, scen, pre, None, iters=iters, dev=dev)
-
-    ms = dict(window=t_win * 1e3, assembly=max(t_asm * 1e3, 0.0),
-              velocity=max((t_full - t_asm) * 1e3, 0.0))
-    total = t_win * 1e3 + t_full * 1e3
+        t_win, (obs, win) = _time(window, scen, iters=iters, dev=dev)
+        pre = dict(obs=obs, window=win)
+        t_asm, _ = _time(tick, scen, pre, "assembly", iters=iters, dev=dev)
+        t_full, _ = _time(tick, scen, pre, None, iters=iters, dev=dev)
+        ms = dict(window=t_win * 1e3, assembly=max(t_asm * 1e3, 0.0),
+                  velocity=max((t_full - t_asm) * 1e3, 0.0))
+        total = t_win * 1e3 + t_full * 1e3
+        clock = "host clock around synchronised calls"
 
     # ---- roofline-style accounting ------------------------------------
     N, H, S = lat.N, lat.H_max, lat.S
@@ -162,9 +198,9 @@ def stage_timings(lat, scen, iters: int = 10, kernels: bool = True,
         velocity_ns_per_step=(ms["velocity"] * 1e6) / max(vel_steps, 1),
         assembly_gflops_per_s=asm_flops / max(t_asm, 1e-9) / 1e9,
         device=str(dev),
-        note=("host clock around synchronised calls; velocity is "
-              "latency-bound (4 stacked levels x P_full sequential steps), "
-              "the window DP reads the cost slab"),
+        note=(f"{clock}; velocity is latency-bound (4 stacked levels x "
+              "P_full sequential steps), the window DP reads the cost "
+              "slab"),
     )
     shares = {k: v / max(total, 1e-9) for k, v in ms.items()}
     return dict(stage_ms={k: round(v, 3) for k, v in ms.items()},
@@ -173,13 +209,13 @@ def stage_timings(lat, scen, iters: int = 10, kernels: bool = True,
 
 
 def range_cost_us(n: int = 20000) -> float:
-    """Host microseconds of one empty ``gltpl.*`` range (``record_function``
-    enter and exit) when no profiler listens, the mean over ``n``: what
-    each range adds to a tick."""
-    from torch.profiler import record_function
+    """Host microseconds of one empty ``gltpl.*`` range
+    (``cuda_graph.span``, tracing off: a ``record_function`` enter and
+    exit) when no profiler listens, the mean over ``n``: what each range
+    adds to an eager tick."""
     t0 = time.perf_counter()
     for _ in range(n):
-        with record_function("gltpl.cost"):
+        with cuda_graph.span("gltpl.cost"):
             pass
     return (time.perf_counter() - t0) / n * 1e6
 

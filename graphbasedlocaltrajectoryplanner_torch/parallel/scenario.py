@@ -22,7 +22,6 @@ import math
 import numpy as np
 import torch
 from torch.distributed import ReduceOp
-from torch.profiler import record_function
 
 from graphbasedlocaltrajectoryplanner_torch import resolve_device
 from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
@@ -245,9 +244,9 @@ def _batched_window(lat: Lattice, scen: Scenario, zone_block,
                     w_last_factors, kernels: bool = True):
     """Obstacle selection, slab hit masks, the window DP and the per-slot
     virtual-goal vectors for the whole batch."""
-    with record_function("gltpl.object_selection"):
+    with cuda_graph.span("gltpl.object_selection"):
         obs = _select_obstacle(lat, scen)
-    with record_function("gltpl.plan_window"):
+    with cuda_graph.span("gltpl.plan_window"):
         window = pg.plan_window_kernel(
             lat, scen.start_layer, scen.start_node, zone_block, scen.obj_pos,
             scen.obj_radius, scen.obj_active, obs["obs_layer"],
@@ -359,7 +358,7 @@ def scenario_tick(lat: Lattice, scen: Scenario,
     h_goal = out["h_goal"].long()
 
     # ---- object vs constant path segment -----------------------------------
-    with record_function("gltpl.const_path_objects"):
+    with cuda_graph.span("gltpl.const_path_objects"):
         # const_path is the exclusive prefix; the reference's ">= 2 rows" check
         # is const_n >= 1 here
         have_const = scen.const_n >= 1
@@ -463,7 +462,7 @@ def scenario_tick(lat: Lattice, scen: Scenario,
                     valid=valid4)
 
     # ---- backtrace + assembly per output slot ------------------------------
-    with record_function("gltpl.backtrace"):
+    with cuda_graph.span("gltpl.backtrace"):
         r4 = rows[:, None]
         goal_tot = out["best"][r4, src4, h_safe] + out["vg"][r4, src4, h_safe]
         goal_node = torch.argmin(goal_tot, dim=-1)                  # (B, 4)
@@ -479,7 +478,7 @@ def scenario_tick(lat: Lattice, scen: Scenario,
                       ).reshape(B, 4, H + 1).long()
         end_nodes = torch.gather(nodes4, 2, h_safe[..., None])[..., 0]
 
-    with record_function("gltpl.assemble"):
+    with cuda_graph.span("gltpl.assemble"):
         # start heading: the previous path's heading at the start node when a
         # const segment exists, else the first edge's stored heading (raceline
         # edges reuse the periodic raceline spline)
@@ -501,7 +500,7 @@ def scenario_tick(lat: Lattice, scen: Scenario,
         n_valid4 = res_all["n_valid"].reshape(B, 4)
 
     # ---- constant-path splice ----------------------------------------------
-    with record_function("gltpl.const_splice"):
+    with cuda_graph.span("gltpl.const_splice"):
         # exported row i = spliced[cut_idx + i]: the remaining const rows then
         # the freshly planned path
         P_full = C_PAD + p_max
@@ -542,7 +541,7 @@ def scenario_tick(lat: Lattice, scen: Scenario,
         lat.glob_rl, lat.glob_el, c_obj_pos, c_obj_vel, dyn_model_exp,
         drag_coeff, m_veh, kernels=kernels)
 
-    with record_function("gltpl.velocity"):
+    with cuda_graph.span("gltpl.velocity"):
         # raceline end velocity per slot, reduced by the end node's lateral
         # displacement from the raceline
         end_layers = torch.gather(out["win_layers"].long(), 1,
@@ -584,7 +583,7 @@ def scenario_tick(lat: Lattice, scen: Scenario,
     em_base = torch.where(case_c | relabel, 0, 1).to(torch.int32)
     if incl_emergency:
         eb = em_base.long()
-        with record_function("gltpl.emergency"):
+        with cuda_graph.span("gltpl.emergency"):
             traj_em = vp.emergency_kernel(trajs4[rows, eb], gg,
                                           kernels=kernels)
         trajs = torch.cat([trajs4, traj_em[:, None]], dim=1)
@@ -741,9 +740,9 @@ def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
         D, i = mesh.shape[spatial_axis], mesh.coords[spatial_axis]
 
         def stage_a(scen):
-            with record_function("gltpl.object_selection"):
+            with cuda_graph.span("gltpl.object_selection"):
                 obs = _select_obstacle(lat, scen)
-            with record_function("gltpl.plan_window"):
+            with cuda_graph.span("gltpl.plan_window"):
                 return (obs, *spatial._stage_a(
                     lat, i, D, scen.start_layer, zone_block, scen.obj_pos,
                     scen.obj_radius, scen.obj_active, obs["obs_layer"],
@@ -751,11 +750,11 @@ def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
                     w_last_factors, N_LAST, kernels))
 
         def stage_b(start_node, w4, Pg):
-            with record_function("gltpl.plan_window"):
+            with cuda_graph.span("gltpl.plan_window"):
                 return spatial._stage_b(i, start_node, w4, Pg, kernels)
 
         def stage_c(start_node, meta, obs_node, parts):
-            with record_function("gltpl.plan_window"):
+            with cuda_graph.span("gltpl.plan_window"):
                 return spatial._stage_c(lat, start_node, zone_block, meta,
                                         obs_node, parts)
         stages = dict(a=stage_a, b=stage_b, c=stage_c, d=finish)
@@ -771,10 +770,10 @@ def make_sharded_tick(lat: Lattice, mesh, kernels: bool = True,
                     res, cost_min, n_valid = st["tick"](scen, **over)
                 else:
                     obs, meta, w4, P = st["a"](scen)
-                    with record_function("gltpl.plan_window"):
+                    with cuda_graph.span("gltpl.plan_window"):
                         Pg = mesh.all_gather(P, spatial_axis)
                     chunk = st["b"](scen.start_node, w4, Pg)
-                    with record_function("gltpl.plan_window"):
+                    with cuda_graph.span("gltpl.plan_window"):
                         parts = mesh.all_gather(chunk, spatial_axis)
                     window = st["c"](scen.start_node, meta, obs["obs_node"],
                                      parts)

@@ -33,10 +33,10 @@ re-run.  Phase 1, a product over N start rows, stays plain torch.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_collision
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_minplus
 from graphbasedlocaltrajectoryplanner_torch.ops.search import (
     INF, FEAS_THRESH)
@@ -131,12 +131,12 @@ def _stage_a(lat: Lattice, i: int, D: int, start_layer, zone_block,
     Hd = -(-H // D)
     pre = pg.window_meta(lat, start_layer, obj_pos, obj_radius, obj_active,
                          obs_layer, obs_node, obs_found)
-    with record_function("gltpl.hit_slab"):
+    with cuda_graph.span("gltpl.hit_slab"):
         hit = (cuda_collision.hit_slab if kernels
                else cuda_collision.hit_slab_plain)(
             lat.samples_xy, pre["slab_layers"], obj_pos, pre["ref2"],
             pre["obj_app"])
-    with record_function("gltpl.window_dp"):
+    with cuda_graph.span("gltpl.window_dp"):
         hs = i * Hd + torch.arange(Hd, device=dev)
         w4 = _local_masked_slabs(
             lat, hs, start_layer, zone_block, pre["slab_layers"], hit,
@@ -159,7 +159,7 @@ def _stage_b(i: int, start_node, w4, Pg, kernels: bool):
     the chunk's re-run from it.  Returns ``best`` and ``bp``'s bits (as
     float32) stacked, (2, B, 4, Hd, N), for one exchange."""
     B, _, _, N, _ = w4.shape
-    with record_function("gltpl.window_dp"):
+    with cuda_graph.span("gltpl.window_dp"):
         f = torch.where(torch.arange(N, device=w4.device)[None, :]
                         == start_node.long()[:, None], 0.0, INF)
         f = f.to(torch.float32)[:, None, :].expand(B, 4, N)
@@ -177,7 +177,7 @@ def _stage_c(lat: Lattice, start_node, zone_block, meta, obs_node, parts):
     N, H = lat.N, lat.H_max
     dev = lat.device
     B = start_node.shape[0]
-    with record_function("gltpl.window_dp"):
+    with cuda_graph.span("gltpl.window_dp"):
         full = torch.cat(parts, dim=-2)[..., :H, :]          # (2,B,4,H,N)
         # 0 at the start node, INF elsewhere (a where, not an indexed
         # store of a Python number: a capture refuses its host copy)
@@ -226,10 +226,10 @@ def spatial_dp_shard(lat: Lattice, start_layer, start_node, zone_block,
                            obj_radius, obj_active, obs_layer, obs_node,
                            obs_found, last_nodes, w_last_factors, n_last,
                            kernels)
-    with record_function("gltpl.window_dp"):
+    with cuda_graph.span("gltpl.window_dp"):
         Pg = mesh.all_gather(P, axis_name)                   # D x (B,4,N,N)
     chunk = _stage_b(i, start_node, w4, Pg, kernels)
-    with record_function("gltpl.window_dp"):
+    with cuda_graph.span("gltpl.window_dp"):
         parts = mesh.all_gather(chunk, axis_name)
     return _stage_c(lat, start_node, zone_block, meta, obs_node, parts)
 

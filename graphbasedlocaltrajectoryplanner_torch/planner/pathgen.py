@@ -15,7 +15,6 @@ tensors; ``kernels=False`` takes the plain versions on any device.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
 from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
@@ -118,12 +117,12 @@ def plan_window_kernel(lat: Lattice, start_layer, start_node, zone_block,
     _check_n_last(last_nodes, n_last)
     pre = window_meta(lat, start_layer, obj_pos, obj_radius, obj_active,
                       obs_layer, obs_node, obs_found)
-    with record_function("gltpl.hit_slab"):
+    with cuda_graph.span("gltpl.hit_slab"):
         hit = (cuda_collision.hit_slab if kernels
                else cuda_collision.hit_slab_plain)(
             lat.samples_xy, pre["slab_layers"], obj_pos, pre["ref2"],
             pre["obj_app"])
-    with record_function("gltpl.window_dp"):
+    with cuda_graph.span("gltpl.window_dp"):
         best, bp = (cuda_window.fused_window_dp if kernels
                     else cuda_window.fused_window_dp_plain)(
             lat.w, zone_block, start_layer, start_node, pre["slab_layers"],

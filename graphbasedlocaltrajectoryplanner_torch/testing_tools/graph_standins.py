@@ -14,6 +14,15 @@ captured function runs only at capture, as on the card.  A
 record holds it like any other; a replay waits for the work each such
 operator returns before it runs the next one, as a graph's collective
 completes before the kernels after it read its output.
+
+The stand-in runtime keeps a fake device clock (``clock``, in ms), which
+each replayed node other than an event record moves on by ``node_ms``.
+Its :class:`Event` reads that clock: recorded during a capture it becomes
+a node of the graph and takes the clock's time whenever a replay reaches
+it, as a timing event recorded in a CUDA graph does.  The graph lists its
+nodes' types in capture order (``node_types``, CUDA's numbers: an event
+record 7, an aten ``copy_`` a memcpy 1, a ``fill_`` or ``zero_`` a
+memset 2, every other operator or recorded unit a kernel 0).
 """
 
 from __future__ import annotations
@@ -65,14 +74,67 @@ def wait_works(x) -> int:
     return 0
 
 
+EVENT_RECORD, MEMCPY, MEMSET, KERNEL = 7, 1, 2, 0
+
+
+class Event:
+    """``torch.cuda.Event`` on the fake device clock of ``cuda``."""
+
+    def __init__(self, cuda, enable_timing=False, external=False):
+        self.cuda, self.timing, self.external = cuda, enable_timing, external
+        self.time = None
+        cuda.events.append(self)
+
+    def stamp(self):
+        self.time = self.cuda.clock
+
+    def record(self, stream=None):
+        rec = self.cuda.recording
+        if rec is None:
+            self.stamp()
+        elif self.external:
+            rec.ops.append((self.stamp, (), {}, None))
+
+    def elapsed_time(self, end) -> float:
+        if not (self.timing and end.timing):
+            raise RuntimeError("an event without timing")
+        if self.time is None or end.time is None:
+            raise RuntimeError("an event not recorded yet")
+        return end.time - self.time
+
+
+def node_type(func) -> int:
+    """The graph node type a recorded entry stands for."""
+    if isinstance(getattr(func, "__self__", None), Event):
+        return EVENT_RECORD
+    packet = getattr(func, "overloadpacket", None)
+    name = packet.__name__ if packet is not None else ""
+    if name == "copy_":
+        return MEMCPY
+    if name in ("fill_", "zero_"):
+        return MEMSET
+    return KERNEL
+
+
 class StandInGraph:
     """``torch.cuda.CUDAGraph`` on the CPU: the recorded operators run
-    again on replay, on the tensors of the capture."""
+    again on replay, on the tensors of the capture, each moving the
+    clock of ``cuda`` on."""
 
-    def __init__(self):
+    def __init__(self, cuda=None, keep_graph=False):
+        self.cuda = cuda
+        self.keep_graph = keep_graph
         self.ops = None
+        self.instantiated = False
         self.replays = 0
         self.collectives = 0
+
+    @property
+    def node_types(self) -> list:
+        return [node_type(op[0]) for op in self.ops]
+
+    def instantiate(self):
+        self.instantiated = True
 
     def replay(self):
         self.replays += 1
@@ -80,6 +142,9 @@ class StandInGraph:
             res = func(*args, **kwargs)
             self.collectives += wait_works(res)
             write(out, res)
+            if self.cuda is not None and not isinstance(
+                    getattr(func, "__self__", None), Event):
+                self.cuda.clock += self.cuda.node_ms
 
 
 class Stream:
@@ -88,21 +153,37 @@ class Stream:
 
 
 class StandInCuda:
-    """The CUDA runtime calls of ``ops/cuda_graph`` on the CPU."""
+    """The CUDA runtime calls of ``ops/cuda_graph`` on the CPU, with a
+    fake device clock (``clock`` ms, ``node_ms`` a replayed node)."""
 
-    def __init__(self):
+    def __init__(self, node_ms: float = 1.0):
         self.made = []
+        self.events = []
+        self.clock = 0.0
+        self.node_ms = node_ms
+        self.recording = None
 
-    def CUDAGraph(self):
-        g = StandInGraph()
+    def CUDAGraph(self, keep_graph=False):
+        g = StandInGraph(self, keep_graph)
         self.made.append(g)
         return g
 
+    def Event(self, enable_timing=False, blocking=False, interprocess=False,
+              external=False):
+        return Event(self, enable_timing, external)
+
+    @staticmethod
+    def graph_node_types(g) -> list:
+        return g.node_types
+
     @contextlib.contextmanager
     def graph(self, g):
-        rec = Record()
-        with rec:
-            yield
+        self.recording = rec = Record()
+        try:
+            with rec:
+                yield
+        finally:
+            self.recording = None
         g.ops = rec.ops
 
     def Stream(self, device=None):

@@ -18,7 +18,8 @@ limit.  Needs a card.
 Its readings are per ``gltpl.*`` range, so it reads the eager tick
 (``tick.__wrapped__`` of ``make_batched_tick``, the body a CUDA-graph
 replay runs without ranges), and so do its host times;
-``stage_timings`` times the compiled prefixes.
+``stage_timings`` reads the compiled tick's traced replays (device ms by
+range from timing events in the graph).
 """
 
 from __future__ import annotations
