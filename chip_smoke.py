@@ -15,7 +15,8 @@ unclosed Monteblanco lattice with the port's builder, then:
    velocity-scan instances, the window DP and the slab-hit kernel against
    their plain versions, bit-equal, on seeded inputs at ragged shapes the
    main paths do not reach, the walk and the min-plus scan on the seeded
-   cases of ``testing_tools/walk_cases``, and the velocity scans'
+   cases of ``testing_tools/walk_cases``, the path assembly on those of
+   ``testing_tools/assemble_cases``, and the velocity scans'
    branch-free division and square root (``csrc/ieee_fast.cuh``) against
    the plain operators on every float32 (the root, dividends over a few
    divisors) and on random pairs; times the walk alone on a table already
@@ -138,8 +139,9 @@ unclosed Monteblanco lattice with the port's builder, then:
    mask; ``entry()``'s B=8 tick; then the fb tick at B=1024 and B=1 and the
    warm sqp tick, eager and compiled in turns (eager, compiled, compiled,
    eager; every window printed), each compiled tick's device kernels and
-   busy share from a profiled replay (the fleet kernels among them), and
-   what each signature cost to capture (warm-up, capture, graph pool);
+   busy share from a profiled replay (the fleet kernels among them, the
+   path assembly exactly once in the fb replay), and what each signature
+   cost to capture (warm-up, capture, graph pool) and its kernel nodes;
 13. the compiled facade (``GraphLTPL`` on the card, its device steps
    captured by ``ops/cuda_graph.capture_on_card``) against the same
    facade's eager calls (``cuda_graph.disabled()``) on the compiled drive's
@@ -186,7 +188,7 @@ unclosed Monteblanco lattice with the port's builder, then:
    its last line, every key of ``BENCH_DETAILS_torch.json``, one signature
    in every timed section, the fleet kernels launched by the headline's
    capture and ``admm_vel`` by the sqp section's, and its parity gate
-   (``testing_tools/cuda_parity``): all seven kernels launched and
+   (``testing_tools/cuda_parity``): all eight kernels launched and
    ``torch.equal`` to their plain versions, the compiled fb and sqp ticks
    within their bars of the CPU oracle; prints the headline and its three
    windows, the B=1 percentiles, the sweep, the sqp rate, the stages and
@@ -230,7 +232,7 @@ TPU = "graphbasedlocaltrajectoryplanner_tpu/ops/"
 CSRC = "graphbasedlocaltrajectoryplanner_torch/csrc/"
 KERNELS = [
     # name, wrapper module attr, source, TPU kernel replaced (the first
-    # five run in the fleet tick, the last in the dense-window search)
+    # six run in the fleet tick, the next in the dense-window search)
     ("hit_slab", "cuda_collision.hit_slab", CSRC + "hit_slab.cu",
      TPU + "pallas_collision.py:112"),
     ("window_dp", "cuda_window.fused_window_dp", CSRC + "window_dp.cu",
@@ -241,17 +243,21 @@ KERNELS = [
      TPU + "pallas_velocity.py:357"),
     ("vel_scan", "cuda_velocity.vel_scan", CSRC + "vel_scan.cu",
      TPU + "pallas_velocity.py:160"),
+    # no Pallas kernel: the JAX package assembles the paths in XLA
+    ("assemble", "cuda_assemble.assemble_path", CSRC + "assemble.cu",
+     "graphbasedlocaltrajectoryplanner_tpu/planner/pathgen.py:377"),
     ("minplus", "cuda_minplus.minplus_scan", CSRC + "minplus.cu",
      TPU + "pallas_minplus.py:90"),
     # no Pallas kernel: the JAX package's ADMM is a lax.scan in XLA
     ("admm_vel", "cuda_admm.admm_vel", CSRC + "admm_vel.cu",
      TPU + "qp.py:211"),
 ]
-FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan")
+FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan",
+         "assemble")
 # timed in every fleet mix and in the facade, beside their bounds
-REDESIGNED = ("hit_slab", "window_dp", "backtrace")
+REDESIGNED = ("hit_slab", "window_dp", "backtrace", "assemble")
 # the kernels of the interactive facade's path
-FACADE = ("hit_slab", "window_dp", "backtrace", "vel_scan")
+FACADE = ("hit_slab", "window_dp", "backtrace", "vel_scan", "assemble")
 # 100 of the fb oval drive's 150 earlier ticks: its plain replay was most
 # of the run, and every action kind is reached by tick 15
 FACADE_TICKS_OVAL = 100
@@ -355,6 +361,35 @@ def _cost_vel(args, out, const_gg):
     return nbytes, ops
 
 
+# float operations a resampled point (the refit's position, derivatives
+# and curvature, the stored edge at two parameters, the heading's wrap;
+# atan2 and pow one each) and a chain node (the system, the sweep, the
+# Hermite coefficients)
+_ASM_POINT_OPS, _ASM_NODE_OPS = 64, 48
+
+
+def _cost_assemble(args, out):
+    """Bytes: the outputs, each row's H + 1 packed edges (40 bytes each)
+    and the index inputs; operations per point and per chain node."""
+    packed, win, nodes, h_eff, psi, p_max = args
+    R, Hp1 = nodes.shape
+    nb = _nbytes(*_as_tuple(out), win, nodes, h_eff, psi) + R * Hp1 * 40
+    return nb, R * (p_max * _ASM_POINT_OPS + Hp1 * _ASM_NODE_OPS)
+
+
+def _as_tuple(out):
+    """A kernel's outputs as a tuple (an assembly's dict in its order)."""
+    if isinstance(out, dict):
+        return tuple(out.values())
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _call_shape(name, a):
+    """The shape printed for a recorded call: its first input's (the node
+    chains' for an assembly)."""
+    return "x".join(str(d) for d in a[2 if name == "assemble" else 0].shape)
+
+
 def _cost_minplus(w, start, best, bp):
     R, H, N, _ = w.shape
     return _nbytes(w, start, best, bp), R * H * N * N * 2   # add + compare
@@ -417,6 +452,8 @@ def _cost(name, a, kw, out):
         return _cost_window_dp(a, out_t, kw["h_max"])
     if name == "backtrace":
         return _cost_backtrace(a, out)
+    if name == "assemble":
+        return _cost_assemble(a, out)
     return _cost_vel(a, out, name == "vel_scan_cgg")
 
 
@@ -432,12 +469,12 @@ def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
     when ``plain_reps``), beside its bound.  Prints a line, returns the
     numbers."""
     po = plain(*a, **kw)
-    po_t = po if isinstance(po, tuple) else (po,)
+    po_t = _as_tuple(po)
     for x in po_t:
         _spoil(x.shape, x.dtype)
     ko = kern(*a, **kw)
     torch.cuda.synchronize()
-    ko_t = ko if isinstance(ko, tuple) else (ko,)
+    ko_t = _as_tuple(ko)
     err = max(float((x.double() - y.double()).abs().max())
               for x, y in zip(ko_t, po_t))
     for x, y in zip(ko_t, po_t):
@@ -449,8 +486,9 @@ def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
                 if plain_reps else None)
     nb, ops = _cost(name, a, kw, ko)
     bound_ms, by = _bound(nb, ops)
-    shape = "x".join(str(d) for d in a[0].shape)
-    rows = a[1].shape[0] if name == "backtrace" else a[0].shape[0]
+    shape = _call_shape(name, a)
+    rows = (a[1].shape[0] if name == "backtrace" else
+            a[2].shape[0] if name == "assemble" else a[0].shape[0])
     print(f"kernel {name} {where} {rows} rows [{shape}]: "
           f"max|kernel-plain|={err:.3g} (bit-equal) kernel {ms:.4f} ms on "
           f"the device, {wrapper_ms:.4f} ms a wrapper call; "
@@ -588,6 +626,44 @@ def ragged_walk_kernels():
         del w
     torch.cuda.synchronize()
     return n_w, n_m
+
+
+def ragged_assemble(lats):
+    """The assembly kernel against its plain version, bit-equal, on the
+    seeded calls of ``testing_tools/assemble_cases`` on each lattice of
+    ``lats``: every horizon mode (1, about H/2, H_max, mixed), ``p_max``
+    the tick's, 64 rows more and 200 rows fewer, the window one row a row
+    and one a scenario, 4, 36 and 4,096 rows, the index tensors int64 and
+    (every other call) int32; output memory spoiled before each call.
+    Returns the number of calls compared."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_assemble
+    from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        assemble_cases as ac)
+    n = 0
+    for lat in lats:
+        packed = pg.packed_edge_table(lat)
+        for h_mode in ac.H_MODES:
+            for p_extra in (0, 64, -200):
+                for shared in (False, True):
+                    for rows in (4, 36, 4096):
+                        a = ac.case(lat, packed, rows, h_mode, p_extra,
+                                    shared, seed=n,
+                                    index_dtype=(torch.int32 if n % 2
+                                                 else torch.int64))
+                        po = _as_tuple(cuda_assemble.assemble_path_plain(*a))
+                        for x in po:
+                            _spoil(x.shape, x.dtype)
+                        ko = _as_tuple(cuda_assemble.assemble_path(*a))
+                        for x, y in zip(ko, po):
+                            _check(x.shape == y.shape and torch.equal(x, y),
+                                   f"ragged assemble L={lat.L} {h_mode} "
+                                   f"p_max {a[5]} shared={shared} R={rows}: "
+                                   f"differs in {int((x != y).sum())} of "
+                                   f"{x.numel()} places")
+                        n += 1
+    torch.cuda.synchronize()
+    return n
 
 
 def dense_window_inputs(lat, scen):
@@ -885,7 +961,7 @@ def options_phase(oval, scen, card, wrapper, fb_prof):
         (f"p_max={p_big}", dict(p_max=p_big), exact, "trajs", fleet5),
         ("until=assembly", dict(until="assembly"),
          ("n_valid", "cost", "h_eff", "valid"), "paths",
-         {"hit_slab", "window_dp", "backtrace"}),
+         {"hit_slab", "window_dp", "backtrace", "assemble"}),
         ("until=decide", dict(until="decide"), ("src", "h_eff", "valid"),
          "h_eff", {"hit_slab", "window_dp"}),
     ]
@@ -1568,11 +1644,13 @@ PAIRED_TICKS = 20
 # launches a compiled fb tick's replay shows
 FLEET_NAMES = (("hit_slab", "hit_slab", 1), ("window_dp", "window_dp", 1),
                ("backtrace", "walk_kernel", 1),
-               ("vel_scan", "vel_scan_kernel", 6))
+               ("vel_scan", "vel_scan_kernel", 6),
+               ("assemble", "assemble_kernel", 1))
 # words of the kernels' device names counted in a replay's profile (the
 # two velocity-scan instances by their first template argument, CGG)
 REPLAY_WORDS = ("hit_slab", "window_dp", "walk_kernel",
-                "vel_scan_kernel<true", "vel_scan_kernel<false", "admm_vel")
+                "vel_scan_kernel<true", "vel_scan_kernel<false", "admm_vel",
+                "assemble_kernel")
 
 
 def _tick_ms(fn, n):
@@ -1598,10 +1676,12 @@ def _same(label, out_c, out_e):
 
 
 def _capture_cost(tick):
-    """What each signature of a compiled tick cost to capture."""
+    """What each signature of a compiled tick cost to capture, and its
+    graph's kernel nodes."""
     return "; ".join(
         f"warm-up {c.warmup_ms:.1f} ms, capture {c.capture_ms:.1f} ms, "
-        f"graph pool {c.pool_bytes / 2 ** 20:.1f} MiB"
+        f"graph pool {c.pool_bytes / 2 ** 20:.1f} MiB, "
+        f"{c.kernel_nodes} kernel nodes"
         for c in tick.graphs.values())
 
 
@@ -1725,6 +1805,11 @@ def compiled_tick_phase(card, oval, mb):
                 _check(prof_c["count_of"](word) >= least,
                        f"compiled {label}: the replay ran no {name} "
                        f"kernel: {prof_c['top']}")
+            # the whole path assembly is one kernel of the graph
+            _check(prof_c["count_of"]("assemble_kernel") == 1,
+                   f"compiled {label}: the replay ran "
+                   f"{prof_c['count_of']('assemble_kernel')} assembly "
+                   f"kernels, not one")
         if prof_c["n"] and label.startswith("sqp"):
             _check(prof_c["count_of"]("admm_vel") >= 1,
                    f"compiled {label}: the replay ran no admm_vel kernel")
@@ -1985,7 +2070,8 @@ SHARDED_WORDS = dict(hit_slab="hit_slab", window_dp="window_dp",
                      backtrace="walk_kernel",
                      vel_scan_cgg="vel_scan_kernel<true",
                      vel_scan="vel_scan_kernel<false",
-                     minplus="minplus_kernel", admm_vel="admm_vel")
+                     minplus="minplus_kernel", admm_vel="admm_vel",
+                     assemble="assemble_kernel")
 
 
 def _same_sharded(label, got, ref):
@@ -2280,8 +2366,8 @@ def main():
     from graphbasedlocaltrajectoryplanner_torch.models import lattice as tl
     from graphbasedlocaltrajectoryplanner_torch.models import track as tt
     from graphbasedlocaltrajectoryplanner_torch.ops import (
-        cuda_admm, cuda_backtrace, cuda_build, cuda_collision, cuda_graph,
-        cuda_minplus, cuda_velocity, cuda_window)
+        cuda_admm, cuda_assemble, cuda_backtrace, cuda_build, cuda_collision,
+        cuda_graph, cuda_minplus, cuda_velocity, cuda_window)
     from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
     from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
@@ -2304,7 +2390,8 @@ def main():
         profile_stages)
     mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
                 cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity,
-                cuda_minplus=cuda_minplus, cuda_admm=cuda_admm)
+                cuda_minplus=cuda_minplus, cuda_admm=cuda_admm,
+                cuda_assemble=cuda_assemble)
 
     def wrapper(path):
         m, f = path.split(".")
@@ -2379,6 +2466,7 @@ def main():
         "vel_scan_cgg": lambda *a: velops.stacked_vel_scan_cgg_auto(
             *a, kernels=False),
         "vel_scan": velops.stacked_vel_scan,
+        "assemble": cuda_assemble.assemble_path_plain,
     }
     stats = {}
     for name, path, src, repl in KERNELS[:len(FLEET)]:
@@ -2413,6 +2501,12 @@ def main():
     n_w, n_m = ragged_walk_kernels()
     print(f"ragged shapes: backtrace bit-equal to the plain version on {n_w} "
           f"seeded calls, minplus on {n_m} (testing_tools/walk_cases), in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    n_a = ragged_assemble((oval, mb))
+    print(f"ragged shapes: assemble bit-equal to the plain version on {n_a} "
+          f"seeded calls on the oval and unclosed Monteblanco "
+          f"(testing_tools/assemble_cases), in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the fleet tick, kernels vs plain, three mixes ------------------
@@ -2615,6 +2709,7 @@ def main():
         "window_dp": cuda_window.fused_window_dp_plain,
         "backtrace": cuda_backtrace.backtrace_walk_plain,
         "vel_scan": velops.stacked_vel_scan,
+        "assemble": cuda_assemble.assemble_path_plain,
     }
     tracks = [
         ("oval", "oval", FACADE_TICKS_OVAL, 0, (15,)),
@@ -2702,12 +2797,12 @@ def main():
                    f"facade {tname}: no {name} call recorded")
             for a, kw in recorder.calls[name]:
                 po = facade_plain[name](*a, **kw)
-                po_t = po if isinstance(po, tuple) else (po,)
+                po_t = _as_tuple(po)
                 for x in po_t:
                     _spoil(x.shape, x.dtype)
                 ko = kern(*a, **kw)
                 torch.cuda.synchronize()
-                ko_t = ko if isinstance(ko, tuple) else (ko,)
+                ko_t = _as_tuple(ko)
                 err = max(float((x.double() - y.double()).abs().max())
                           for x, y in zip(ko_t, po_t))
                 if name == "vel_scan":
@@ -2721,7 +2816,7 @@ def main():
                     facade_ms[name] += ms
                     facade_wrapper_ms[name] += wrapper_ms
                 stats[name]["err"] = max(stats[name]["err"], err)
-                shape = "x".join(str(d) for d in a[0].shape)
+                shape = _call_shape(name, a)
                 bound = ""
                 if name in REDESIGNED:
                     b_ms, by = _bound(*_cost(name, a, kw, ko))

@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("hit_slab", "window_dp", "backtrace", "vel_scan", "minplus",
-           "admm_vel")
+           "admm_vel", "assemble")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
@@ -93,6 +93,7 @@ _ENTRY = {
                  [_P] * 11 + [_I, _P, _I, _I, _I] + [_F] * 7 + [_P]),
     "minplus": ("minplus_launch", [_P] * 4 + [_I] * 5 + [_P]),
     "admm_vel": ("admm_vel_launch", [_P] * 15 + [_I] * 3 + [_F] * 4 + [_P]),
+    "assemble": ("assemble_launch", [_P] * 9 + [_I] * 7 + [_P]),
 }
 
 
@@ -121,7 +122,8 @@ KERNEL_WRAPPERS = dict(
     vel_scan_cgg="cuda_velocity.vel_scan_cgg",
     vel_scan="cuda_velocity.vel_scan",
     minplus="cuda_minplus.minplus_scan",
-    admm_vel="cuda_admm.admm_vel")
+    admm_vel="cuda_admm.admm_vel",
+    assemble="cuda_assemble.assemble_path")
 
 
 def wrappers() -> dict:

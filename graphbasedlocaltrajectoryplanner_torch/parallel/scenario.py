@@ -492,10 +492,11 @@ def scenario_tick(lat: Lattice, scen: Scenario,
                                lat.node_psi[start_layer, start_node][:, None])
         psi_s = torch.where(scen.warm[:, None], scen.psi_start[:, None],
                             psi_cold)
+        # the four slots of scenario b read its window row b
         res_all = pg.assemble_action_kernel(
-            lat, out["win_layers"].repeat_interleave(4, dim=0),
-            nodes4.reshape(B * 4, H + 1), h_safe.reshape(B * 4),
-            psi_s.reshape(B * 4), p_max=p_max, packed=packed)
+            lat, out["win_layers"], nodes4.reshape(B * 4, H + 1),
+            h_safe.reshape(B * 4), psi_s.reshape(B * 4), p_max=p_max,
+            packed=packed, kernels=kernels)
         path4 = res_all["path"].reshape(B, 4, p_max, 5)
         n_valid4 = res_all["n_valid"].reshape(B, 4)
 

@@ -162,9 +162,10 @@ class OnlineHandler:
                                      slot=slots, slot_range=slot_range)
 
         def assemble(win_layers, nodes, h_effs, psi_s):
+            # every action reads the one window row
             return pg.assemble_action_kernel(
-                lat, win_layers.expand(nodes.shape[0], -1), nodes, h_effs,
-                psi_s, p_max=self.P, packed=self.packed)
+                lat, win_layers, nodes, h_effs, psi_s, p_max=self.P,
+                packed=self.packed, kernels=kernels)
 
         def opponent(pos, vel):
             stop_dist, roll_vel, _, roll_cum = vp.opponent_summary(

@@ -7,8 +7,8 @@ for straight/left/right, overtake splits for left/right, the
 ``w_last_edges`` discount), the virtual-goal vectors, the backtrace and the
 C2-refit path assembly.  Every function takes a leading scenario (or row)
 dimension instead of being vmapped.  With ``kernels`` (the default) the
-window DP, the backtrace and the dense window's min-plus sweep go through
-the CUDA kernels' wrappers, which take their plain versions on CPU
+window DP, the backtrace, the path assembly and the dense window's
+min-plus sweep go through the CUDA kernels' wrappers, which take their plain versions on CPU
 tensors; ``kernels=False`` takes the plain versions on any device.
 """
 
@@ -20,13 +20,12 @@ from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
 from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
 from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
 from graphbasedlocaltrajectoryplanner_torch.ops import splines as spl
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_assemble
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_backtrace
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_collision
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_minplus
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_window
-from graphbasedlocaltrajectoryplanner_torch.ops.heading import (
-    heading_to_dir, dir_to_heading)
 from graphbasedlocaltrajectoryplanner_torch.ops.search import INF
 
 # action slot order (fixed)
@@ -284,40 +283,6 @@ def backtrace_slot(best, bp, vg, h_eff, kernels: bool = True, slot=None,
 # path assembly: fuse edge samples, C2 re-fit through nodes, resample
 # ---------------------------------------------------------------------------
 
-def _fit_clamped_chain_padded(points, el, psi_s, psi_e, n_seg, H):
-    """Clamped C2 chain fit per row with a per-row segment count
-    ``n_seg <= H``: equations at or beyond the true end pin the tangent to
-    the end heading, keeping the tridiagonal system at static size.
-
-    ``points`` (R, H+1, 2), ``el`` (R, H), ``psi_s``/``psi_e``/``n_seg``
-    (R,).  Returns coefficients (R, H, 4, 2)."""
-    seg_len = torch.clamp(el, min=1e-9)
-    m0 = heading_to_dir(psi_s)                                  # (R, 2)
-    mn = heading_to_dir(psi_e)
-    lam = seg_len[:, :-1] / seg_len[:, 1:]                      # (R, H-1)
-    dp_over_l = (points[:, 1:] - points[:, :-1]) / seg_len[..., None]
-    rhs = 3.0 * (dp_over_l[:, :-1] + lam[..., None] * dp_over_l[:, 1:])
-    rhs = torch.cat([(rhs[:, 0] + (-m0))[:, None], rhs[:, 1:]], dim=1)
-    ones = torch.ones_like(lam)
-    lower = torch.cat([ones[:, :1] * 0.0, ones[:, 1:]], dim=1)
-    diag = 2.0 * (1.0 + lam)
-    upper = lam
-    j = torch.arange(lam.shape[1], device=lam.device)
-    pin = j[None, :] >= (n_seg.long()[:, None] - 1)
-    lower = torch.where(pin, 0.0, lower)
-    diag = torch.where(pin, 1.0, diag)
-    upper = torch.where(pin, 0.0, upper)
-    rhs = torch.where(pin[..., None], mn[:, None, :], rhs)
-    u = spl._thomas(lower.T, diag.T, upper.T,
-                    rhs.transpose(0, 1)).transpose(0, 1)        # (R, H-1, 2)
-    m = torch.cat([m0[:, None], u, mn[:, None]], dim=1)        # (R, H+1, 2)
-    past = torch.arange(H + 1, device=lam.device)[None, :] \
-        >= n_seg.long()[:, None]
-    m = torch.where(past[..., None], mn[:, None, :], m)
-    m = torch.cat([m0[:, None], m[:, 1:]], dim=1)
-    return spl._coeffs_from_tangents(points, m, seg_len)
-
-
 def packed_edge_table(lat: Lattice):
     """Per-edge assembly data packed into one ``(L, N, N, 10)`` table:
     ``[npts, len, coeffs_0..7]`` (raceline edges reuse the periodic
@@ -342,101 +307,30 @@ def packed_edge_table(lat: Lattice):
 
 
 def assemble_action_kernel(lat: Lattice, win_layers, nodes, h_eff, psi_s,
-                           p_max: int, *, packed=None):
+                           p_max: int, *, packed=None, kernels: bool = True):
     """Fuse each row's node chain into one C2 path (fixed size).
 
     Per-edge sample counts give the fused index layout (shared endpoints
     deduplicated), element lengths come from the pre-refit stored edges,
     and one curvature-continuous spline through the node positions
     (clamped headings, chord lengths = stored edge lengths) is re-sampled
-    with the same per-segment counts for x, y, psi, kappa.
+    with the same per-segment counts for x, y, psi, kappa.  With
+    ``kernels`` the rows go through the assembly kernel's wrapper
+    (``ops/cuda_assemble.assemble_path``: one launch on the card, the
+    plain version on CPU tensors); ``kernels=False`` takes the plain
+    version on any device.
 
     :param packed: :func:`packed_edge_table` of ``lat`` (built here when
         not given; a caller that assembles every tick passes its own).
-    :param win_layers: (R, H+1); ``nodes`` (R, H+1) window node chains
-        (-1 pad); ``h_eff`` (R,) >= 1; ``psi_s`` (R,) start headings.
+    :param win_layers: (R, H+1), or (R0, H+1) with R0 dividing R, row r
+        taking row ``r // (R / R0)``; ``nodes`` (R, H+1) window node chains
+        (-1 pad); ``h_eff`` (R,) in [1, H]; ``psi_s`` (R,) start headings.
     :returns: dict(path (R, p_max, 5) [x y psi kappa el], n_valid (R,),
         node_idx (R, H+1) int32 path row of each chain node, coeffs
         (R, H, 8) refit coefficients [x a0..a3, y a0..a3])
     """
     if packed is None:
         packed = packed_edge_table(lat)
-    H = lat.H_max
-    dev = nodes.device
-    R = nodes.shape[0]
-    rows = torch.arange(R, device=dev)
-    h_eff = h_eff.long()
-    nsafe = nodes.long().clamp(0, lat.N - 1)
-    seg_active = torch.arange(H, device=dev)[None, :] < h_eff[:, None]
-
-    m_all = nsafe[:, torch.clamp(torch.arange(H + 1, device=dev) + 1, 0, H)]
-    rows_e = packed[win_layers.long(), nsafe, m_all]            # (R, H+1, 10)
-    npts_e = torch.where(seg_active, rows_e[:, :H, 0].to(torch.int32), 1)
-    len_e = torch.where(seg_active, rows_e[:, :H, 1], 1.0)
-    ecoeffs = rows_e[..., 2:10]                                 # (R, H+1, 8)
-
-    node_idx = torch.cat([torch.zeros((R, 1), dtype=torch.int64, device=dev),
-                          torch.cumsum(npts_e - 1, dim=1)], dim=1)
-    n_valid = node_idx[rows, h_eff] + 1
-
-    chain_pos = ecoeffs[..., 0:2]
-    end_pos = chain_pos[rows, h_eff]
-    chain_pos = torch.where(
-        (torch.arange(H + 1, device=dev)[None, :] > h_eff[:, None])[..., None],
-        end_pos[:, None, :], chain_pos)
-
-    # end heading: analytic heading at t=1 of the last active edge
-    c_last = ecoeffs[rows, h_eff - 1].reshape(R, 4, 2)
-    psi_e, _ = spl.head_curv_an(c_last, 1.0)
-
-    coeffs = _fit_clamped_chain_padded(chain_pos, len_e, psi_s, psi_e,
-                                       h_eff, H)                # (R, H, 4, 2)
-
-    # sample the refit chain with the per-segment point counts
-    idxp = torch.arange(p_max, device=dev)
-    seg_id = torch.sum(node_idx[:, None, 1:] <= idxp[None, :, None], dim=2)
-    seg_id = torch.clamp(seg_id, 0, H - 1)                      # (R, p_max)
-    table = torch.cat([coeffs.reshape(R, H, 8),
-                       node_idx[:, :H, None].to(torch.float32),
-                       npts_e[..., None].to(torch.float32),
-                       ecoeffs[:, :H]], dim=-1)                  # (R, H, 18)
-    rows_p = torch.gather(table, 1, seg_id[..., None].expand(R, p_max, 18))
-    start_p = rows_p[..., 8].to(torch.int64)
-    npts_p = rows_p[..., 9].to(torch.int64)
-
-    within = (idxp[None, :] - start_p).to(torch.float32)
-    den = torch.clamp(npts_p - 1, min=1)
-    t = torch.clamp(within / den, 0.0, 1.0)
-    ax0, ay0, ax1, ay1, ax2, ay2, ax3, ay3 = rows_p[..., :8].unbind(-1)
-    px = ax0 + t * (ax1 + t * (ax2 + t * ax3))
-    py = ay0 + t * (ay1 + t * (ay2 + t * ay3))
-    dx = ax1 + t * (2.0 * ax2 + t * 3.0 * ax3)
-    dy = ay1 + t * (2.0 * ay2 + t * 3.0 * ay3)
-    ddx = 2.0 * ax2 + t * 6.0 * ax3
-    ddy = 2.0 * ay2 + t * 6.0 * ay3
-    psi = dir_to_heading(dx, dy)
-    denom = torch.pow(dx ** 2 + dy ** 2, 1.5)
-    kappa = (dx * ddy - dy * ddx) / torch.clamp(denom, min=1e-12)
-    # per-point element length of the pre-refit stored edge, recomputed from
-    # the edge coefficients with the offline table's formula
-    t2 = torch.clamp((within + 1.0) / den, 0.0, 1.0)
-    ex0, ey0, ex1, ey1, ex2, ey2, ex3, ey3 = rows_p[..., 10:18].unbind(-1)
-    dxe = (ex0 + t2 * (ex1 + t2 * (ex2 + t2 * ex3))
-           - (ex0 + t * (ex1 + t * (ex2 + t * ex3))))
-    dye = (ey0 + t2 * (ey1 + t2 * (ey2 + t2 * ey3))
-           - (ey0 + t * (ey1 + t * (ey2 + t * ey3))))
-    el = torch.sqrt(dxe * dxe + dye * dye)
-    tail = idxp[None, :] >= (n_valid[:, None] - 1)
-    el = torch.where(tail, 0.0, el)
-    path = torch.stack([px, py, psi, kappa, el], dim=-1)
-    # final point: the refit's last real segment at t=1; padding rows
-    # freeze at the same values
-    c_fin = coeffs[rows, h_eff - 1]                              # (R, 4, 2)
-    psi_f, kappa_f = spl.head_curv_an(c_fin, 1.0)
-    pt_f = spl.eval_spline(c_fin, 1.0)
-    fin = torch.stack([pt_f[:, 0], pt_f[:, 1], psi_f, kappa_f,
-                       torch.zeros_like(psi_f)], dim=-1)
-    path = torch.where(tail[..., None], fin[:, None, :], path)
-    coeffs_flat = torch.cat([coeffs[..., 0], coeffs[..., 1]], dim=-1)
-    return dict(path=path, n_valid=n_valid,
-                node_idx=node_idx.to(torch.int32), coeffs=coeffs_flat)
+    fn = (cuda_assemble.assemble_path if kernels
+          else cuda_assemble.assemble_path_plain)
+    return fn(packed, win_layers, nodes, h_eff, psi_s, p_max)

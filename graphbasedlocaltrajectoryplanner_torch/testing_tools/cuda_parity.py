@@ -23,8 +23,9 @@ Kernel gates, each ``torch.equal`` (bit-equal) to the plain version:
     ``pallas_parity.check_backtrace`` through ``pathgen.backtrace_slot``
     (goal argmin and walk);
   * ``minplus`` on the dense window of the same scenarios
-    (``pathgen.plan_window_dense``) and ``admm_vel`` on the QP rows of a
-    sqp fleet tick at ``batch`` (``vp_backend="sqp"``, ``sqp_m=115``), which
+    (``pathgen.plan_window_dense``), and ``admm_vel`` on the QP rows and
+    ``assemble`` on the path assembly (``ops/cuda_assemble``) of a sqp
+    fleet tick at ``batch`` (``vp_backend="sqp"``, ``sqp_m=115``), which
     the JAX gate leaves out (no production path there runs a Pallas kernel
     for them).
 
@@ -110,32 +111,50 @@ def _held(name, run_kernel, plain_out, dev) -> dict:
                 ok=bool(equal and (launches > 0 or dev.type != "cuda")))
 
 
-def _recorded_admm_calls(fn):
-    """``fn()`` with ``cuda_admm.admm_vel`` recording its arguments (the QP
-    data cloned) while it runs; returns the calls."""
-    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_admm
-    orig, calls = cuda_admm.admm_vel, []
+def _clone(x):
+    """``x`` with every tensor in it (also in a dict) cloned."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
 
-    def rec(d, **kw):
-        calls.append(({k: v.clone() if torch.is_tensor(v) else v
-                       for k, v in d.items()}, dict(kw)))
-        return orig(d, **kw)
-    # the wrapper counts through its module's name, which is ``rec`` while
-    # it is in place: the recorded run's launches stay on ``rec``
-    rec.launches = 0
-    cuda_admm.admm_vel = rec
+
+def _recorded_calls(fn, targets):
+    """``fn()`` with each wrapper ``(module, name)`` of ``targets``
+    recording its arguments (tensors cloned) while it runs; returns
+    ``{name: [(args, kwargs), ...]}``."""
+    saved, calls = [], {}
+    for mod, name in targets:
+        orig, calls[name] = getattr(mod, name), []
+
+        def rec(*a, _orig=orig, _calls=calls[name], **kw):
+            _calls.append((_clone(list(a)), _clone(kw)))
+            return _orig(*a, **kw)
+        # the wrapper counts through its module's name, which is ``rec``
+        # while it is in place: the recorded run's launches stay on ``rec``
+        rec.launches = 0
+        saved.append((mod, name, orig))
+        setattr(mod, name, rec)
     try:
         fn()
     finally:
-        cuda_admm.admm_vel = orig
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
     return calls
 
 
+def _outputs(res):
+    """An assembly's outputs as a tuple in a fixed order."""
+    return tuple(res[k] for k in ("path", "n_valid", "node_idx", "coeffs"))
+
+
 def check_window_kernels(lat, batch: int, dev) -> dict:
-    """``hit_slab``, ``window_dp``, ``minplus`` and ``admm_vel`` on one seeded
-    batch (seed 11, two opponents)."""
+    """``hit_slab``, ``window_dp``, ``minplus``, ``admm_vel`` and
+    ``assemble`` on one seeded batch (seed 11, two opponents)."""
     from graphbasedlocaltrajectoryplanner_torch.ops import (
-        cuda_admm, cuda_collision, cuda_minplus, cuda_window, cuda_graph, qp)
+        cuda_admm, cuda_assemble, cuda_collision, cuda_minplus, cuda_window,
+        cuda_graph, qp)
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
     from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
 
@@ -169,20 +188,28 @@ def check_window_kernels(lat, batch: int, dev) -> dict:
     rep["minplus"] = _held("minplus", lambda: cuda_minplus.minplus_scan(
         dense["w_all"], start4), (dense["best"], dense["bp"]), dev)
 
-    # the QP rows of a sqp fleet tick (its eager body: a replay passes no
-    # call through Python)
+    # the QP rows and the path assembly of a sqp fleet tick (its eager
+    # body: a replay passes no call through Python)
     tick = cuda_graph.eager(sc.make_batched_tick(lat, device=dev, **SQP))
-    calls = _recorded_admm_calls(lambda: tick(scen))
-    if not calls:
-        raise RuntimeError("the sqp tick made no admm_vel call")
-    d, kw = calls[0]
+    calls = _recorded_calls(lambda: tick(scen),
+                            [(cuda_admm, "admm_vel"),
+                             (cuda_assemble, "assemble_path")])
+    for name, got in calls.items():
+        if not got:
+            raise RuntimeError(f"the sqp tick made no {name} call")
+    (d,), kw = calls["admm_vel"][0]
     def solve(admm, **extra):
         x, r = admm(d, **kw, **extra)
         return x, r["r_prim"], r["r_dual"], r["y"]
     rep["admm_vel"] = _held(
         "admm_vel", lambda: solve(cuda_admm.admm_vel, with_y=True),
         solve(qp.admm_vel_qp), dev)
-    rep["admm_vel"]["calls_in_tick"] = len(calls)
+    rep["admm_vel"]["calls_in_tick"] = len(calls["admm_vel"])
+    a, kw = calls["assemble_path"][0]
+    rep["assemble"] = _held(
+        "assemble", lambda: _outputs(cuda_assemble.assemble_path(*a, **kw)),
+        _outputs(cuda_assemble.assemble_path_plain(*a, **kw)), dev)
+    rep["assemble"]["calls_in_tick"] = len(calls["assemble_path"])
     return rep
 
 

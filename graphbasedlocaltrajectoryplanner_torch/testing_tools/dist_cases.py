@@ -87,11 +87,13 @@ EXACT = ("valid", "h_eff", "cost", "n_valid", "case_a", "relabel", "em_base")
 # the kernels each case launches on the card (b and c_tick: the spatial
 # window DP in place of the window-DP kernel)
 CASE_KERNELS = {
-    "a": ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan"),
-    "b": ("hit_slab", "backtrace", "vel_scan_cgg", "vel_scan", "minplus"),
+    "a": ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan",
+          "assemble"),
+    "b": ("hit_slab", "backtrace", "vel_scan_cgg", "vel_scan", "minplus",
+          "assemble"),
     "c": ("hit_slab", "minplus"),
     "c_tick": ("hit_slab", "backtrace", "vel_scan_cgg", "vel_scan",
-               "minplus"),
+               "minplus", "assemble"),
 }
 
 
