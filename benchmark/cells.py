@@ -24,8 +24,8 @@ def run(man, cell, cfg, mix, args, t_start) -> int:
 def run_cell(man, cell, cfg, mix, seed, seconds, traced, t_start, dev,
              fault=None, control=None):
     """One run; ``fault`` (the tests') breaks the program's timed path:
-    the tick is replaced by ``fault(tick)``; ``control`` checks the
-    control in the program's place (its readings)."""
+    the program's tick is replaced by ``fault(tick)``; ``control`` checks
+    the control in the program's place (its readings)."""
     if mix["kind"] != "fleet":
         raise ValueError(f"unknown traffic kind {mix['kind']!r}")
     if dev.type == "cuda":
@@ -73,19 +73,25 @@ def _release(dev):
         torch.cuda.empty_cache()
 
 
+def _signatures(tick) -> int:
+    """The compiled tick's captured signatures (0 for an eager tick)."""
+    return len(getattr(tick, "graphs", ()))
+
+
 def run_fleet(man, cell, cfg, mix, seed, seconds, traced, t_start, dev,
               fault, control):
-    f = fleet.setup(cfg, mix, seed, dev)
-    if fault is not None:
-        f.tick = fault(f.tick)
+    f = fleet.setup(cfg, mix, seed, dev, fault=fault)
     fleet.warm(f.tick, f.batches, dev)
     setup_s = core.clock() - t_start
-    n, secs, keep = fleet.window(f.tick, f.batches, seconds, dev)
+    sigs = _signatures(f.tick)
+    n, secs, keep, used = fleet.window(f.tick, f.batches, seconds, dev)
     peak = _peak(dev)
     if dev.type == "cuda":
-        print(f"card after the window: {core.card_state()}; device ms a "
-              f"tick after it (quartiles): "
-              f"{fleet.device_ms(f.tick, f.batches)}", file=sys.stderr)
+        print(f"card after the window: {core.card_state()}; compiled "
+              f"signatures before the window {sigs}, after it "
+              f"{_signatures(f.tick)}; device ms a tick after it "
+              f"(quartiles): {fleet.device_ms(f.tick, f.batches)}",
+              file=sys.stderr)
     B = mix["batch"]
     e2e = dict(replans_per_s=n * B / secs, setup_s=setup_s)
     ctx = None
@@ -93,12 +99,14 @@ def run_fleet(man, cell, cfg, mix, seed, seconds, traced, t_start, dev,
         ctx = fleet.traced_readings(f.tick, f.batches, dev, core.PROGRAM,
                                     mix["trace_ticks"])
         peak = max(peak, _peak(dev))
-    p_rows = fleet.program_rows(keep, fleet.checked_rows(f))
-    del keep
+    rows = fleet.checked_rows(f)
+    p_rows = fleet.program_rows(keep, rows)
+    c_rows = None if used is None else fleet.program_rows(used, rows)
+    del keep, used
     f.tick = f.batches = None
     _release(dev)
     t_check = core.clock()
-    checks = fleet.check(f, p_rows, control)
+    checks = fleet.check(f, p_rows, control, c_rows)
     phases(setup_s, secs, t_check - t_start - setup_s - secs,
            core.clock() - t_check)
     failed = 0 if all(c["ok"] for c in checks) else n * B

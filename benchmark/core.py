@@ -122,29 +122,49 @@ def ini_values(cfg: dict) -> dict:
     return out
 
 
+def mapped_values(cfg: dict) -> dict:
+    """Every name the configuration maps: its INI values
+    (:func:`ini_values`) and its ``tick_literals``, option values that no
+    INI key holds (``{"tire_end_idx": 0, "sqp_step": 2.5}``).  A name
+    given both ways is refused."""
+    out = ini_values(cfg)
+    lit = cfg.get("tick_literals", {})
+    both = sorted(set(out) & set(lit))
+    if both:
+        raise ValueError(f"{cfg['name']}: {both} both in ini_to_tick and "
+                         "in tick_literals")
+    return dict(out, **lit)
+
+
 def tick_options(cfg: dict) -> dict:
-    """The program's fleet tick options: the INI values it takes and the
-    configuration's vehicle (``machines`` left out: a tensor, made on the
-    device by the caller)."""
-    v = ini_values(cfg)
+    """The program's fleet tick options: every mapped value
+    (:func:`mapped_values`) that the tick takes by name (a keyword of
+    ``parallel/scenario.scenario_tick``, to which ``make_batched_tick``
+    passes its options), and the configuration's vehicle (``machines``
+    left out: a tensor, made on the device by the caller).  A mapped value
+    that the tick does not take (the upstream ``v_max_offset``, the follow
+    controller's gains) reaches the reference alone."""
+    import inspect
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario
+    keys = inspect.signature(scenario.scenario_tick).parameters
     veh = cfg["vehicle"]
-    return dict(vp_backend=v["vp_backend"], filt_window=v["filt_window"],
-                w_last_factors=v["w_last_factors"], vel_max=veh["vel_max"],
-                gg_lim=tuple(veh["gg"]), safety_d=veh["safety_d"],
-                dyn_model_exp=veh["dyn_model_exp"],
+    opts = {k: v for k, v in mapped_values(cfg).items() if k in keys}
+    return dict(opts, vel_max=veh["vel_max"], gg_lim=tuple(veh["gg"]),
+                safety_d=veh["safety_d"], dyn_model_exp=veh["dyn_model_exp"],
                 drag_coeff=veh["drag_coeff"], m_veh=veh["m_veh"])
 
 
 def reference_params(cfg: dict, ref_lat) -> dict:
-    """The same parameters for the reference, read from the same files."""
-    v = ini_values(cfg)
-    if v["vp_backend"] != "fb" or v["filt_window"] != 1:
+    """The same parameters for the reference, read from the same files:
+    the vehicle, every mapped value, the follow controller's gains by name
+    and the lattice's vehicle length.  ``vp_backend`` picks the
+    reference's speed stage (``benchmark/reference/plan.speed_stage``)."""
+    v = mapped_values(cfg)
+    if v["vp_backend"] == "fb" and v.get("filt_window", 1) != 1:
         raise ValueError("the reference plans fb profiles, unsmoothed")
     pd = v["control_params"]
-    return dict(cfg["vehicle"], w_last_factors=v["w_last_factors"],
-                v_max_offset=v["v_max_offset"], c_p=pd["c_p"],
-                k_d=pd["k_d"], k_p=pd["k_p"],
-                veh_length=ref_lat.cfg.veh_length)
+    return dict(cfg["vehicle"], **v, c_p=pd["c_p"], k_d=pd["k_d"],
+                k_p=pd["k_p"], veh_length=ref_lat.cfg.veh_length)
 
 
 # ---------------------------------------------------------------------------

@@ -3,23 +3,32 @@
 back to back, for the whole window.
 
 Set-up builds the program's lattice (cached in the checkout) and the
-reference's, makes every scenario batch from the seed with the
+reference's, finds the reference's speed stage for the configuration's
+velocity backend, makes every scenario batch from the seed with the
 benchmark's generator (``benchmark/scenarios.py``), and warms the tick's
 one signature on every batch.  The window runs ticks in a closed loop,
 each on the next batch; ``replans_per_s`` is every scenario of every tick
 over the window's whole time, the last tick's device work included.  The
 check replans a sample of the window's scenarios, drawn from the seed,
 with the plain reference (``benchmark/reference/plan.py``) on the host.
+
+A mix may carry tick inputs from each batch's previous output into its
+next tick (``carry``: tick keyword -> output key, e.g. ``{"sqp_x0":
+"vx_sqp"}``, the SQP planner's warm start): the tick is then
+:class:`Carried`, and the check hands the reference the carried inputs
+that produced each checked output.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from benchmark import core, scenarios, trace, work
+from benchmark.reference import plan
 
 
 @dataclasses.dataclass
@@ -33,6 +42,7 @@ class Fleet:
     batches: list = None         # the program's
     tick: object = None
     opts: dict = None
+    tp: dict = None              # the reference's parameters
 
 
 def batch_seed(seed: int, j: int, rank: int = 0) -> list:
@@ -66,23 +76,85 @@ def program_tick(prog_lat, cfg: dict, opts: dict, dev, kernels: bool = True):
                                  device=dev, machines=machines, **kw)
 
 
+class Carried:
+    """The program's tick with the mix's ``carry``: each batch's tick
+    takes those keywords from the same batch's previous output, as a car
+    plans from its own last plan.  A batch's first tick, with nothing yet
+    to carry, runs the eager tick (the program's ``__wrapped__``), so
+    that the carried signature is the only one the compiled tick
+    captures.  ``__wrapped__`` is the eager tick with the carried inputs;
+    ``graphs`` and ``report()`` are the program's tick's."""
+
+    def __init__(self, tick, carry: dict):
+        self.tick = tick
+        self.carry = dict(carry)
+        self.eager = getattr(tick, "__wrapped__", tick)
+        self.__wrapped__ = functools.partial(self._call, self.eager)
+        # id(batch) -> (batch, inputs of its next tick, of its last tick);
+        # the batch is held, so that no other object takes its id
+        self.state = {}
+
+    def __call__(self, scen):
+        return self._call(self.tick, scen)
+
+    def _call(self, fn, scen):
+        held = self.state.get(id(scen))
+        if held is None:
+            over, out = {}, self.eager(scen)
+        else:
+            over = held[1]
+            out = fn(scen, **over)
+        nxt = {kw: out[key] for kw, key in self.carry.items()}
+        self.state[id(scen)] = (scen, nxt, over)
+        return out
+
+    def start(self, batches) -> None:
+        """The cold first tick of each batch that has had none."""
+        for b in batches:
+            if id(b) not in self.state:
+                self(b)
+
+    def inputs(self, scen) -> dict:
+        """The carried inputs of the last tick on ``scen``."""
+        return self.state[id(scen)][2]
+
+    @property
+    def graphs(self):
+        return self.tick.graphs
+
+    def report(self) -> dict:
+        return self.tick.report()
+
+
 def setup(cfg: dict, mix: dict, seed: int, dev, kernels: bool = True,
-          make_tick=True) -> Fleet:
+          make_tick=True, fault=None) -> Fleet:
+    """The cell's set-up; ``fault`` (the tests') breaks the program's
+    tick underneath: ``fault(tick)`` in its place."""
     csv = core.track_csv(cfg)
     f = Fleet(cfg, mix, seed)
     f.ref_lat = core.reference_lattice(cfg, csv)
+    f.tp = core.reference_params(cfg, f.ref_lat)
+    # a backend without its plain reference stops here, not after a window
+    plan.speed_stage(f.tp["vp_backend"])
     f.prog_lat = core.program_lattice(cfg, csv)
     f.opts = core.tick_options(cfg)
     f.ref_batches = make_batches(f.ref_lat, mix, seed)
     f.batches = [to_program(b, dev) for b in f.ref_batches]
     if make_tick:
         f.tick = program_tick(f.prog_lat, cfg, f.opts, dev, kernels)
+        if fault is not None:
+            f.tick = fault(f.tick)
+        if mix.get("carry"):
+            f.tick = Carried(f.tick, mix["carry"])
     return f
 
 
 def warm(tick, batches, dev) -> None:
     """The tick's one signature captured on the first batch, then one
-    replay on every batch."""
+    replay on every batch; a :class:`Carried` tick first plans each batch
+    cold."""
+    if isinstance(tick, Carried):
+        tick.start(batches)
     for b in batches:
         tick(b)
     if dev.type == "cuda":
@@ -92,7 +164,8 @@ def warm(tick, batches, dev) -> None:
 def window(tick, batches, seconds: float, dev):
     """Ticks back to back on batch after batch until ``seconds`` have
     passed at the end of a round of batches; returns (ticks, seconds
-    including the device's last work, the last output of each batch)."""
+    including the device's last work, the last output of each batch, the
+    carried inputs of each batch's last tick or None without carry)."""
     keep = [None] * len(batches)
     n = 0
     if dev.type == "cuda":
@@ -106,7 +179,10 @@ def window(tick, batches, seconds: float, dev):
             break
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return n, core.clock() - t0, keep
+    secs = core.clock() - t0
+    used = ([tick.inputs(b) for b in batches] if isinstance(tick, Carried)
+            else None)
+    return n, secs, keep, used
 
 
 def device_ms(tick, batches, n: int = 48) -> str:
@@ -245,14 +321,14 @@ def checked_rows(f: Fleet):
 
 
 def program_rows(keep, rows):
-    """The program's outputs of the checked scenarios, batch by batch,
-    concatenated (numpy on the host)."""
+    """The program's outputs (or carried inputs) of the checked
+    scenarios, batch by batch, concatenated (numpy on the host)."""
     out = {}
     for o, r in zip(keep, rows):
         if o is None:
             raise RuntimeError("a batch got no tick in the window")
-        idx = torch.as_tensor(r, device=o["trajs"].device, dtype=torch.long)
         for k, v in o.items():
+            idx = torch.as_tensor(r, device=v.device, dtype=torch.long)
             out.setdefault(k, []).append(v[idx].cpu())
     return {k: torch.cat(v).numpy() for k, v in out.items()}
 
@@ -273,23 +349,25 @@ def bf16_batch(b: dict) -> dict:
     return {k: bf16(v) if v.dtype.kind == "f" else v for k, v in b.items()}
 
 
-def check(f: Fleet, p_rows: dict, control=None) -> list:
+def check(f: Fleet, p_rows: dict, control=None, carried=None) -> list:
     """The checks of a fleet run: the lattice, then the sampled scenarios'
-    outputs against the reference's, each number beside its limit.
-    ``control="bf16"`` puts the control in the program's place: the
-    reference on its lattice and the scenarios held in bfloat16."""
-    from benchmark.reference import plan
+    outputs against the reference's, each number beside its limit;
+    ``carried`` the tick inputs carried into those scenarios' checked
+    ticks (:func:`program_rows` of the window's), which the reference's
+    speed stage takes too.  ``control="bf16"`` puts the control in the
+    program's place: the reference on its lattice, the scenarios and the
+    carried inputs held in bfloat16."""
     rows = checked_rows(f)
     scen = scenarios.concat([scenarios.rows(b, r)
                              for b, r in zip(f.ref_batches, rows)])
-    tp = core.reference_params(f.cfg, f.ref_lat)
-    r = plan.replan(f.ref_lat, scen, tp)
+    r = plan.replan(f.ref_lat, scen, f.tp, carried)
     if control is None:
         lat_nums = lattice_numbers(program_lattice_view(f.prog_lat),
                                    f.ref_lat)
     elif control == "bf16":
         lat_c = bf16_lattice(f.ref_lat)
-        p_rows = plan.replan(lat_c, bf16_batch(scen), tp)
+        p_rows = plan.replan(lat_c, bf16_batch(scen), f.tp,
+                             carried and bf16_batch(carried))
         lat_nums = lattice_numbers(lat_c, f.ref_lat)
     else:
         raise ValueError(f"control {control!r}")

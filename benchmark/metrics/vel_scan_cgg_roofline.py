@@ -1,7 +1,8 @@
 """The share of its roofline that the vel_scan_cgg kernel reaches in the
 compiled fleet tick: the least time for the work of one tick's calls
-(counted from their shapes, ``benchmark/work.py``) over the kernel's
-device time a tick in the traced window of compiled ticks, in percent."""
+(counted from their shapes, ``benchmark/kernels/vel_scan_cgg.py``) over
+the kernel's device time a tick in the traced window of compiled ticks,
+in percent."""
 
 from benchmark import work
 

@@ -19,7 +19,8 @@ search sums the float32 costs its lattice keeps, in float32):
    behind what is left of the committed path;
 5. each action's speed profile by the forward-backward solver, the
    follow action's by the follow controller against the opponent's own
-   braking run-out on the raceline;
+   braking run-out on the raceline (the ``fb`` backend; another backend's
+   speed stage is a file of its own, :func:`speed_stage`);
 6. the emergency profile: full braking along the base action.
 
 Nothing here is taken from the planner's package; the lattice is the
@@ -28,7 +29,10 @@ reference's own (``benchmark/reference/lattice.py``).
 
 from __future__ import annotations
 
+import importlib.util
 import math
+import os
+import re
 
 import numpy as np
 
@@ -41,6 +45,7 @@ N_LAST = 4                   # nodes of the previous solution's chain
 OPP_ROWS = 128               # raceline points of an opponent's run-out
 OPP_GG = 14.0
 EMERG_DRAG, EMERG_MASS = 0.854, 1160.0
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def path_rows(lat: rl.RefLattice) -> int:
@@ -498,16 +503,46 @@ def emergency(traj, car_em):
     return np.concatenate([traj[..., 0:5], v[..., None], ax[..., None]], -1)
 
 
+def speed_stage(backend: str):
+    """The speed stage of the velocity backend ``backend`` (the upstream
+    ``vp_type``): :func:`speeds` for ``fb``; for any other the ``speeds``
+    of ``vp_<backend>.py`` beside this file, loaded by its path, which
+    takes :func:`speeds`' arguments and returns what it returns, and
+    takes besides, as keywords, the tick inputs that the traffic carries
+    from each scenario's previous tick (``sqp_x0``: numpy, a row a
+    scenario).  A backend without its file raises FileNotFoundError,
+    naming the file to add."""
+    if backend == "fb":
+        return speeds
+    if not re.fullmatch(r"[A-Za-z0-9_]{1,64}", str(backend)):
+        raise ValueError(f"velocity backend {backend!r}: not a name")
+    path = os.path.join(HERE, f"vp_{backend}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"the velocity backend {backend!r} has no plain reference: add "
+            f"benchmark/reference/vp_{backend}.py, whose speeds() takes "
+            "plan.speeds' arguments and the carried inputs as keywords")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark.reference._vp_{backend}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.speeds
+
+
 # ---------------------------------------------------------------------------
 # the whole replan
 # ---------------------------------------------------------------------------
 
-def replan(lat: rl.RefLattice, batch: dict, tp: dict) -> dict:
+def replan(lat: rl.RefLattice, batch: dict, tp: dict,
+           over: dict = None) -> dict:
     """The full action set of every scenario of ``batch`` (numpy fields as
-    the traffic generator makes them); ``tp`` the tick's parameters.
-    Returns the planner's outputs as numpy arrays: trajs (B, 5, P, 7)
-    [s x y psi kappa vx ax], valid, cost, h_eff, n_valid (B, 5), case_a,
-    relabel, em_base (B,)."""
+    the traffic generator makes them); ``tp`` the tick's parameters, whose
+    ``vp_backend`` picks the speed stage (:func:`speed_stage`); ``over``
+    the tick inputs carried into these scenarios (numpy, a row a
+    scenario), handed to that stage.  Returns the planner's outputs as
+    numpy arrays: trajs (B, 5, P, 7) [s x y psi kappa vx ax], valid, cost,
+    h_eff, n_valid (B, 5), case_a, relabel, em_base (B,)."""
+    stage = speed_stage(tp["vp_backend"])
     B = len(batch["start_layer"])
     rows = path_rows(lat)
     P = C_ROWS + rows
@@ -575,9 +610,9 @@ def replan(lat: rl.RefLattice, batch: dict, tp: dict) -> dict:
         out["relabel"][b] = act["relabel"]
         out["em_base"][b] = em
     opp_stop, opp_v, opp_cum = opponent_runout(lat, pos_o, v_o, car_opp)
-    s_path, vx, ax, bound = speeds(tp, car, paths, n_real, batch, red,
-                                   v_end_rl, obj_dist, v_o, opp_stop, opp_v,
-                                   opp_cum)
+    s_path, vx, ax, bound = stage(tp, car, paths, n_real, batch, red,
+                                  v_end_rl, obj_dist, v_o, opp_stop, opp_v,
+                                  opp_cum, **(over or {}))
     ok &= bound | (np.arange(4) < 2)
     t4 = np.concatenate([s_path[..., None], paths[..., 0:4], vx[..., None],
                          ax[..., None]], -1)

@@ -97,8 +97,10 @@ def test_configs_and_their_files():
         for k in ("offline_ini", "online_ini"):
             assert os.path.isfile(os.path.join(core.ROOT, cfg[k]))
             assert cfg[k].startswith("benchmark/")
+        # the backend has its reference's speed stage, and the tick takes it
+        from benchmark.reference import plan
         opts = core.tick_options(cfg)
-        assert opts["vp_backend"] == "fb"
+        assert callable(plan.speed_stage(opts["vp_backend"]))
         assert set(cfg["guarantees"]) == {"discrete_mismatches",
                                           "max_cost_rel", "max_dpos_m",
                                           "max_dv_mps"}
@@ -151,11 +153,17 @@ def test_metric_reader_loads_and_finds_nothing_in_nothing(name):
 
 def test_roofline_readers_never_fill_in_zero():
     from benchmark import work
-    ctx = dict(kind="fleet", kernel_ms={}, work={})
-    assert core.reader("vel_scan_cgg_roofline")(ctx) is None
-    ctx["kernel_ms"] = {"void vel_scan_kernel<true, true>(x)": 0.25}
-    ctx["work"] = {"vel_scan_cgg": (int(3.35e12 * 0.25e-3 * 0.5), 0, 4)}
-    assert core.reader("vel_scan_cgg_roofline")(ctx) == pytest.approx(50.0)
+    for kernel, trace_name in (
+            ("vel_scan_cgg", "void vel_scan_kernel<true, true>(x)"),
+            ("assemble", "assemble_kernel(Args, int)")):
+        read = core.reader(f"{kernel}_roofline")
+        ctx = dict(kind="fleet", kernel_ms={}, work={})
+        assert read(ctx) is None
+        ctx["kernel_ms"] = {trace_name: 0.25, "other_kernel": 1.0}
+        assert read(ctx) is None                  # no counted call
+        ctx["work"] = {kernel: (int(3.35e12 * 0.25e-3 * 0.5), 0, 4)}
+        assert read(ctx) == pytest.approx(50.0)
+        assert read(dict(ctx, kernel_ms={"other_kernel": 1.0})) is None
     assert work.bound_ms(0, int(67e12 * 1e-3)) == pytest.approx(1.0)
 
 

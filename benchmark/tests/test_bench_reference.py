@@ -27,8 +27,13 @@ def _top_levels(code: str) -> set:
 
 
 def test_reference_loads_neither_jax_nor_the_program():
-    tops = _top_levels("from benchmark.reference import lattice, plan, "
-                       "track, velocity\nfrom benchmark import scenarios")
+    """The reference, every velocity backend's file beside it included."""
+    tops = _top_levels(
+        "import glob, os\n"
+        "from benchmark.reference import lattice, plan, track, velocity\n"
+        "from benchmark import scenarios\n"
+        "for p in glob.glob(os.path.join(plan.HERE, 'vp_*.py')):\n"
+        "    plan.speed_stage(os.path.basename(p)[3:-3])")
     assert not tops & (FORBIDDEN | {core.PROGRAM})
 
 
