@@ -20,13 +20,20 @@ names with two renamed for the kernels that replace its Pallas calls:
     gltpl.qp_setup              gltpl.qp_setup          qp_setup
     gltpl.qp_factor             gltpl.qp_factor         qp_factor
     gltpl.qp_iters              gltpl.qp_iters          qp_iters
+    (none)                      gltpl.sqp_window        velocity
+    (none)                      gltpl.sqp_handoff       velocity
 
-(``parallel/scenario.py``, ``planner/pathgen.plan_window_kernel`` and
-``ops/qp.py``).  On the card the ADMM kernel (``csrc/admm_vel.cu``)
-factors and iterates in one launch, so ``gltpl.qp_iters`` encloses the
-whole solve there and ``gltpl.qp_factor`` is empty; the plain ADMM
-(``qp.admm_vel_qp``) fills both.  The ranges stay outside the kernels'
-wrappers, so a CUDA-graph capture of a wrapper call sees none of them.
+(``parallel/scenario.py``, ``planner/pathgen.plan_window_kernel``,
+``ops/qp.py`` and ``planner/velplan.py``).  The SQP branch's
+``gltpl.sqp_window`` (the m-point windows, the follow cap, the QPs
+stacked) and ``gltpl.sqp_handoff`` (the status map, zeroing, the
+profiles placed back on the path rows, the follow bound and the
+warm-start store) nest in ``gltpl.velocity`` beside the QP ranges.  On
+the card the ADMM kernel (``csrc/admm_vel.cu``) factors and iterates in
+one launch, so ``gltpl.qp_iters`` encloses the whole solve there and
+``gltpl.qp_factor`` is empty; the plain ADMM (``qp.admm_vel_qp``) fills
+both.  The ranges stay outside the kernels' wrappers, so a CUDA-graph
+capture of a wrapper call sees none of them.
 
 :func:`stage_timings` reads, on the card, the compiled fleet tick's own
 traced replays (``ops/cuda_graph.tracing`` and ``tick.report()``: device
@@ -64,6 +71,8 @@ SCOPE_TO_STAGE = {
     "gltpl.qp_setup": "qp_setup",
     "gltpl.qp_factor": "qp_factor",
     "gltpl.qp_iters": "qp_iters",
+    "gltpl.sqp_window": "velocity",
+    "gltpl.sqp_handoff": "velocity",
 }
 FB_STAGES = ("window", "assembly", "velocity", "other")
 SQP_STAGES = FB_STAGES + ("qp_setup", "qp_factor", "qp_iters")

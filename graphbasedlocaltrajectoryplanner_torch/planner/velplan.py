@@ -173,27 +173,32 @@ def _sqp_follow_vmax(m: int, vel_max, v_obj, obj_dist, safety_d, veh_length,
     return torch.where(idx_m < idx_vmax[..., None], vel_max, tail)
 
 
-def _sqp_profiles(win, v_max, v_start, x0v, machines, tire_end_idx,
-                  tire_end_mps2, veh_turn, drag_coeff, m_veh, kernels):
-    """The QP profiles of the m-point windows ``win`` (..., m, 4) [kappa el
-    ax ay] in one batched solve (one kernel launch on the card): the
-    tire-end gg on the last ``tire_end_idx`` points, the conservative
-    terminal velocity ``sqrt(tire_end_mps2 * veh_turn)`` at the window's
-    end, ``v = v_start`` pinned at its start, ``x0v`` (..., m) the
-    warm-start guess; ``tire_end_mps2`` a scalar or one per trailing row.
-    Returns (vx (..., m), status (...,) int32)."""
+def _sqp_tire_end(win, tire_end_idx, tire_end_mps2, veh_turn):
+    """The gg of the m-point windows ``win`` (..., m, 4) [kappa el ax ay]
+    with the tire-end gg on the last ``tire_end_idx`` points, and the
+    conservative terminal velocity ``sqrt(tire_end_mps2 * veh_turn)``;
+    ``tire_end_mps2`` a scalar or one per trailing row.  Returns (gg (...,
+    m, 2), v_end)."""
     m = win.shape[-2]
     def f32(v):
         return cuda_graph.as_tensor(v, win.dtype, win.device)
     tire = f32(tire_end_mps2)
     in_tire = torch.arange(m, device=win.device) >= m - tire_end_idx
     gg = torch.where(in_tire[:, None], tire[..., None, None], win[..., 2:4])
-    v_end = torch.sqrt(tire * f32(veh_turn))
-    vx, res = qp.qp_vel_profile(
+    return gg, torch.sqrt(tire * f32(veh_turn))
+
+
+def _sqp_profiles(win, gg, v_end, v_max, v_start, x0v, machines, drag_coeff,
+                  m_veh, kernels):
+    """The QP profiles of the m-point windows ``win`` (..., m, 4) in one
+    batched solve (one kernel launch on the card): ``gg`` and ``v_end``
+    from :func:`_sqp_tire_end` (the terminal velocity at the window's
+    end), ``v = v_start`` pinned at its start, ``x0v`` (..., m) the
+    warm-start guess.  Returns (vx (..., m), the ADMM's residuals)."""
+    return qp.qp_vel_profile(
         win[..., 0], win[..., 1], gg, machines, v_max, v_start, v_end=v_end,
-        end_idx=m, drag_coeff=drag_coeff, m_veh=m_veh, pin_idx=0, x0_v=x0v,
-        kernels=kernels)
-    return vx, qp.qp_solver_status(res)
+        end_idx=win.shape[-2], drag_coeff=drag_coeff, m_veh=m_veh, pin_idx=0,
+        x0_v=x0v, kernels=kernels)
 
 
 def _place_back(vx_m, shift, P: int):
@@ -370,37 +375,42 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
         # ---- the 4 normal-branch QPs and the follow QP of every scenario
         # over the fixed m-point window, one batched solve --------------------
         m = P if sqp_m is None else min(sqp_m, P)
-        x0v = (torch.full_like(el, 20.0) if sqp_x0 is None
-               else sqp_x0)[..., :m]                              # (B, 4, m)
-        cols4 = torch.cat([kappa[..., None], el[..., None],
-                           gg.expand(B, 4, P, 2)], dim=-1)        # (B,4,P,4)
-        win_n = _sqp_m_window(cols4, c_len[:, None], v_idx - pref_idx, m)
-        win_f = _sqp_m_window(cols4[:, Fs], c_len,
-                              n_valids[:, Fs] - pref_idx[:, Fs], m)
-        vmax_f = _sqp_follow_vmax(m, vel_max, v_obj, obj_dist, safety_d,
-                                  veh_length, gg[0, 0], sqp_step)  # (B, m)
-        vx5, st5 = _sqp_profiles(
-            torch.cat([win_n, win_f[:, None]], dim=1),
-            torch.cat([vel_max.expand(B, 4, m), vmax_f[:, None]], dim=1),
-            torch.cat([vel_start, vel_start[:, Fs:Fs + 1]], dim=1),
-            torch.cat([x0v, x0v[:, Fs:Fs + 1]], dim=1), machines,
-            tire_end_idx, tire_end_mps2, veh_turn, drag_coeff, m_veh,
-            kernels)
-        st_n, st_f = st5[:, :4], st5[:, 4]
-        # infeasible solves zero; overtake slots also inaccurate ones
-        is_ot = torch.arange(4, device=dev) >= 2
-        zero_n = (st_n == -3) | (is_ot & (st_n == 2))
-        vx_qn = torch.where(zero_n[..., None], 0.0, vx5[:, :4])
-        vx_qf = torch.where((st_f == -3)[:, None], 0.0, vx5[:, 4])
-        vx_normal = _place_back(vx_qn, c_len[:, None], P)         # (B, 4, P)
-        vx_follow = _place_back(vx_qf, c_len, P)                  # (B, P)
-        follow_bound = torch.abs(_at(vx_follow, pref_idx[:, Fs])
-                                 - vel_start[:, Fs]) < v_max_offset
-        too_close = torch.zeros((B,), dtype=torch.bool, device=dev)
-        is_follow4 = torch.arange(4, device=dev) == Fs
-        qp_status = torch.where(is_follow4, st_f[:, None], st_n)
-        vx_sqp = _sqp_store(torch.where(is_follow4[:, None], vx_qf[:, None],
-                                        vx_qn), P)
+        with cuda_graph.span("gltpl.sqp_window"):
+            x0v = (torch.full_like(el, 20.0) if sqp_x0 is None
+                   else sqp_x0)[..., :m]                          # (B, 4, m)
+            cols4 = torch.cat([kappa[..., None], el[..., None],
+                               gg.expand(B, 4, P, 2)], dim=-1)    # (B,4,P,4)
+            win_n = _sqp_m_window(cols4, c_len[:, None], v_idx - pref_idx, m)
+            win_f = _sqp_m_window(cols4[:, Fs], c_len,
+                                  n_valids[:, Fs] - pref_idx[:, Fs], m)
+            vmax_f = _sqp_follow_vmax(m, vel_max, v_obj, obj_dist, safety_d,
+                                      veh_length, gg[0, 0], sqp_step)  # (B, m)
+            win5 = torch.cat([win_n, win_f[:, None]], dim=1)
+            gg5, v_end5 = _sqp_tire_end(win5, tire_end_idx, tire_end_mps2,
+                                        veh_turn)
+            vmax5 = torch.cat([vel_max.expand(B, 4, m), vmax_f[:, None]],
+                              dim=1)
+            vs5 = torch.cat([vel_start, vel_start[:, Fs:Fs + 1]], dim=1)
+            x05 = torch.cat([x0v, x0v[:, Fs:Fs + 1]], dim=1)
+        vx5, res5 = _sqp_profiles(win5, gg5, v_end5, vmax5, vs5, x05,
+                                  machines, drag_coeff, m_veh, kernels)
+        with cuda_graph.span("gltpl.sqp_handoff"):
+            st5 = qp.qp_solver_status(res5)
+            st_n, st_f = st5[:, :4], st5[:, 4]
+            # infeasible solves zero; overtake slots also inaccurate ones
+            is_ot = torch.arange(4, device=dev) >= 2
+            zero_n = (st_n == -3) | (is_ot & (st_n == 2))
+            vx_qn = torch.where(zero_n[..., None], 0.0, vx5[:, :4])
+            vx_qf = torch.where((st_f == -3)[:, None], 0.0, vx5[:, 4])
+            vx_normal = _place_back(vx_qn, c_len[:, None], P)     # (B, 4, P)
+            vx_follow = _place_back(vx_qf, c_len, P)              # (B, P)
+            follow_bound = torch.abs(_at(vx_follow, pref_idx[:, Fs])
+                                     - vel_start[:, Fs]) < v_max_offset
+            too_close = torch.zeros((B,), dtype=torch.bool, device=dev)
+            is_follow4 = torch.arange(4, device=dev) == Fs
+            qp_status = torch.where(is_follow4, st_f[:, None], st_n)
+            vx_sqp = _sqp_store(torch.where(is_follow4[:, None],
+                                            vx_qf[:, None], vx_qn), P)
     else:
         # ---- follow scalars (follow slot only) -----------------------------
         control_d = ctrl_cp * safety_d + veh_length
@@ -653,33 +663,39 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
         v_decel = torch.zeros_like(el)
         masked = idx < pref_idx[:, None]
         m = P if sqp_m is None else min(sqp_m, P)
-        x0v = (torch.full_like(el, 20.0) if sqp_x0 is None
-               else sqp_x0)[:, :m]
-        # unscaled gg: the reference applies gg_scale through fb only
-        cols = torch.stack([kappa, el, gg[..., 0], gg[..., 1]], dim=-1)
-        win_n = _sqp_m_window(cols, pref_idx, v_idx - pref_idx, m)
-        win_f = _sqp_m_window(cols, pref_idx, n_valid - pref_idx, m)
-        vmax_f = _sqp_follow_vmax(m, vel_max, v_obj, obj_dist, safety_d,
-                                  veh_length, gg[:, 0, 0], sqp_step)
-        vx2, st2 = _sqp_profiles(
-            torch.stack([win_n, win_f]),
-            torch.stack([vel_max.expand(R, m), vmax_f]),
-            vel_start.expand(2, R), torch.stack([x0v, x0v]), machines,
-            tire_end_idx, tire_end_mps2, veh_turn, drag_coeff, m_veh,
-            kernels)
-        st_n, st_f = st2[0], st2[1]
-        ot = (torch.zeros_like(is_follow) if is_overtake is None
-              else is_overtake)
-        zero_n = (st_n == -3) | (ot & (st_n == 2))
-        vx_qn = torch.where(zero_n[:, None], 0.0, vx2[0])
-        vx_qf = torch.where((st_f == -3)[:, None], 0.0, vx2[1])
-        vx_normal = _place_back(vx_qn, pref_idx, P)
-        vx_follow = _place_back(vx_qf, pref_idx, P)
-        too_close = torch.zeros((R,), dtype=torch.bool, device=dev)
-        follow_bound = torch.abs(_at(vx_follow, pref_idx) - vel_start) \
-            < v_max_offset
-        qp_status = torch.where(is_follow, st_f, st_n)
-        vx_sqp = _sqp_store(torch.where(is_follow[:, None], vx_qf, vx_qn), P)
+        with cuda_graph.span("gltpl.sqp_window"):
+            x0v = (torch.full_like(el, 20.0) if sqp_x0 is None
+                   else sqp_x0)[:, :m]
+            # unscaled gg: the reference applies gg_scale through fb only
+            cols = torch.stack([kappa, el, gg[..., 0], gg[..., 1]], dim=-1)
+            win_n = _sqp_m_window(cols, pref_idx, v_idx - pref_idx, m)
+            win_f = _sqp_m_window(cols, pref_idx, n_valid - pref_idx, m)
+            vmax_f = _sqp_follow_vmax(m, vel_max, v_obj, obj_dist, safety_d,
+                                      veh_length, gg[:, 0, 0], sqp_step)
+            win2 = torch.stack([win_n, win_f])
+            gg2, v_end2 = _sqp_tire_end(win2, tire_end_idx, tire_end_mps2,
+                                        veh_turn)
+            vmax2 = torch.stack([vel_max.expand(R, m), vmax_f])
+            x02 = torch.stack([x0v, x0v])
+        vx2, res2 = _sqp_profiles(win2, gg2, v_end2, vmax2,
+                                  vel_start.expand(2, R), x02, machines,
+                                  drag_coeff, m_veh, kernels)
+        with cuda_graph.span("gltpl.sqp_handoff"):
+            st2 = qp.qp_solver_status(res2)
+            st_n, st_f = st2[0], st2[1]
+            ot = (torch.zeros_like(is_follow) if is_overtake is None
+                  else is_overtake)
+            zero_n = (st_n == -3) | (ot & (st_n == 2))
+            vx_qn = torch.where(zero_n[:, None], 0.0, vx2[0])
+            vx_qf = torch.where((st_f == -3)[:, None], 0.0, vx2[1])
+            vx_normal = _place_back(vx_qn, pref_idx, P)
+            vx_follow = _place_back(vx_qf, pref_idx, P)
+            too_close = torch.zeros((R,), dtype=torch.bool, device=dev)
+            follow_bound = torch.abs(_at(vx_follow, pref_idx) - vel_start) \
+                < v_max_offset
+            qp_status = torch.where(is_follow, st_f, st_n)
+            vx_sqp = _sqp_store(torch.where(is_follow[:, None], vx_qf, vx_qn),
+                                P)
     else:
         # ---- level 0: brake prefix to a lowered v_max ----------------------
         prefix_active = vel_plan > (vel_max + 0.1)

@@ -21,6 +21,7 @@ FB_RANGES = {"gltpl.object_selection", "gltpl.plan_window", "gltpl.hit_slab",
              "gltpl.assemble", "gltpl.const_splice", "gltpl.velocity",
              "gltpl.emergency"}
 QP_RANGES = {"gltpl.qp_setup", "gltpl.qp_factor", "gltpl.qp_iters"}
+SQP_RANGES = {"gltpl.sqp_window", "gltpl.sqp_handoff"}
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +72,7 @@ def test_fb_tick_ranges_once_each(oval):
     tick4 = tsc.make_batched_tick(lat, device="cpu", incl_emergency=False)
     assert set(_ranges(lambda: tick4(scen))) == FB_RANGES - {
         "gltpl.emergency"}
-    assert set(pf.SCOPE_TO_STAGE) == FB_RANGES | QP_RANGES
+    assert set(pf.SCOPE_TO_STAGE) == FB_RANGES | QP_RANGES | SQP_RANGES
 
 
 def test_sqp_tick_ranges(oval):
@@ -82,10 +83,11 @@ def test_sqp_tick_ranges(oval):
         tick = tsc.make_batched_tick(lat, device="cpu", kernels=kernels,
                                      vp_backend="sqp", sqp_m=115)
         seen = _ranges(lambda: tick(scen))
-        assert set(seen) == FB_RANGES | QP_RANGES, (kernels, seen)
+        assert set(seen) == FB_RANGES | QP_RANGES | SQP_RANGES, (kernels,
+                                                                 seen)
         assert seen["gltpl.qp_setup"] == 1 and seen["gltpl.qp_factor"] == 1
         assert seen["gltpl.qp_iters"] == (2 if kernels else 1)
-        assert all(seen[r] == 1 for r in FB_RANGES), seen
+        assert all(seen[r] == 1 for r in FB_RANGES | SQP_RANGES), seen
 
 
 def test_attribution_rule_on_a_made_up_trace():
