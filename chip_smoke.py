@@ -25,8 +25,7 @@ unclosed Monteblanco lattice with the port's builder, then:
    the velocity scans'
    branch-free division and square root (``csrc/ieee_fast.cuh``) against
    the plain operators on every float32 (the root, dividends over a few
-   divisors) and on random pairs; times the walk alone on a table already
-   on chip (``testing_tools/walk_variants.cu``), its chain floor;
+   divisors) and on random pairs (``testing_tools/ieee_fast_check``);
 2. runs the fleet tick (``make_batched_tick``) at batch 1024 in three
    mixes — default oval with 1 opponent, default oval with 3 opponents and
    16 collision slots, unclosed Monteblanco with 1 opponent — with the
@@ -64,9 +63,7 @@ unclosed Monteblanco lattice with the port's builder, then:
    above, each line naming the one that ran) bit-equal to its plain
    version (``ops/qp.admm_vel_qp``) on the SQP fleet tick's, the SQP
    facade's and the SQP ladder's recorded calls and on the seeded ragged
-   calls of ``testing_tools/admm_cases``, timed beside the kernel's first
-   design, one block a row, on the same calls
-   (``testing_tools/admm_variants.cu``), one row's chain floor, its bounds
+   calls of ``testing_tools/admm_cases``, timed beside its bounds
    (67 TFLOP/s, and one add or multiply a lane and cycle, since it may not
    contract) and the plain version (and the plain version's kernel
    launches a solve); the fleet tick under
@@ -224,6 +221,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_build  # noqa: E402
 
 B = 1024
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM rate and
@@ -234,35 +232,13 @@ PEAK_F32_OPS_S = 67e12
 # is built with -fmad=false and must round each on its own): one a lane and
 # cycle, 132 SMs x 128 lanes x 1.98 GHz
 PEAK_F32_NOFMA_OPS_S = 132 * 128 * 1.98e9
-TPU = "graphbasedlocaltrajectoryplanner_tpu/ops/"
-CSRC = "graphbasedlocaltrajectoryplanner_torch/csrc/"
-KERNELS = [
-    # name, wrapper module attr, source, TPU kernel replaced (the first
-    # seven run in the fleet tick, the next in the dense-window search)
-    ("hit_slab", "cuda_collision.hit_slab", CSRC + "hit_slab.cu",
-     TPU + "pallas_collision.py:112"),
-    ("window_dp", "cuda_window.fused_window_dp", CSRC + "window_dp.cu",
-     TPU + "pallas_window.py:379"),
-    ("backtrace", "cuda_backtrace.backtrace_walk", CSRC + "backtrace.cu",
-     TPU + "pallas_backtrace.py:69"),
-    ("vel_scan_cgg", "cuda_velocity.vel_scan_cgg", CSRC + "vel_scan.cu",
-     TPU + "pallas_velocity.py:357"),
-    ("vel_scan", "cuda_velocity.vel_scan", CSRC + "vel_scan.cu",
-     TPU + "pallas_velocity.py:160"),
-    # no Pallas kernel: the JAX package assembles the paths in XLA
-    ("assemble", "cuda_assemble.assemble_path", CSRC + "assemble.cu",
-     "graphbasedlocaltrajectoryplanner_tpu/planner/pathgen.py:377"),
-    # no Pallas kernel: the JAX package's arc lengths are jnp.cumsum in XLA
-    ("prefix_sum", "cuda_prefix.blocked_cumsum", CSRC + "prefix_sum.cu",
-     "graphbasedlocaltrajectoryplanner_tpu/planner/velplan.py:618"),
-    ("minplus", "cuda_minplus.minplus_scan", CSRC + "minplus.cu",
-     TPU + "pallas_minplus.py:90"),
-    # no Pallas kernel: the JAX package's ADMM is a lax.scan in XLA
-    ("admm_vel", "cuda_admm.admm_vel", CSRC + "admm_vel.cu",
-     TPU + "qp.py:211"),
-]
 FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan",
          "assemble", "prefix_sum")
+# every kernel as (name, wrapper, source, JAX site replaced) from the
+# package's registry, the fleet tick's first (the next in the dense-window
+# search and the SQP backend)
+KERNELS = [(name, *k) for name, k in sorted(
+    cuda_build.KERNEL_WRAPPERS.items(), key=lambda nk: nk[0] not in FLEET)]
 # timed in every fleet mix and in the facade, beside their bounds
 REDESIGNED = ("hit_slab", "window_dp", "backtrace", "assemble")
 # the kernels of the interactive facade's path
@@ -800,20 +776,14 @@ def _cost_admm(d, iters, n_out):
     return nb, ops
 
 
-def admm_held_and_timed(where, d, kw, plain_reps=0, variant=None,
-                        chain=None):
+def admm_held_and_timed(where, d, kw, plain_reps=0):
     """One recorded ADMM call: the kernel (with the duals) bit-equal to
     ``qp.admm_vel_qp`` on spoiled output memory, then timed on the device
     and per wrapper call (the plain version too when ``plain_reps``),
-    beside the block design on the same call (``variant``, the launch of
-    ``testing_tools/admm_variants.cu``), one row's chain floor (``chain``,
-    ms) and both bounds: f32 operations at 67 TFLOP/s and at one add or
+    beside both bounds: f32 operations at 67 TFLOP/s and at one add or
     multiply a lane and cycle.  Prints a line naming the design that ran,
     returns the numbers."""
-    from graphbasedlocaltrajectoryplanner_torch.ops import (cuda_admm,
-                                                            cuda_build, qp)
-    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
-        admm_variants as av)
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_admm, qp
     iters = kw.get("iters", 60)
     w_smooth = kw.get("w_smooth", 1e-4)
     px, pr = qp.admm_vel_qp(d, iters=iters, w_smooth=w_smooth)
@@ -838,9 +808,6 @@ def admm_held_and_timed(where, d, kw, plain_reps=0, variant=None,
     plain_ms = (_median_ms(lambda: qp.admm_vel_qp(d, iters=iters,
                                                   w_smooth=w_smooth),
                            plain_reps) if plain_reps else None)
-    baseline_ms = (av.variant_ms(_device_ms, variant, cuda_build, "baseline",
-                                 d, kw, cuda_admm.WARP_ROWS)
-                   if variant is not None else None)
     nb, ops = _cost_admm(d, iters, (kx, kr["r_prim"], kr["r_dual"]))
     bound_ms, by = _bound(nb, ops)
     nofma_ms = max(ops / PEAK_F32_NOFMA_OPS_S, nb / PEAK_BYTES_S) * 1e3
@@ -851,18 +818,12 @@ def admm_held_and_timed(where, d, kw, plain_reps=0, variant=None,
           f"{design} design: max|kernel-plain|={err:.3g} (x, r_prim, r_dual, "
           f"y bit-equal) kernel {ms:.4f} ms on the device, {wrapper_ms:.4f} "
           f"ms a wrapper call; "
-          + (f"block design {baseline_ms:.4f} ms; "
-             if baseline_ms is not None else "")
-          + (f"faster than it: {ms < baseline_ms}; "
-             if baseline_ms is not None else "")
-          + (f"chain floor {chain:.4f} ms; " if chain is not None else "")
           + (f"plain {plain_ms:.4f} ms " if plain_reps else "")
           + f"bound {bound_ms:.5f} ms ({by}: {nb} B, {ops} ops), "
           f"{nofma_ms:.5f} ms without FMA", flush=True)
     return dict(ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, err=err,
-                baseline_ms=baseline_ms, bound_nofma_ms=nofma_ms,
-                design=design)
+                bound_nofma_ms=nofma_ms, design=design)
 
 
 def plain_admm_launches(d, kw):
@@ -2483,13 +2444,9 @@ def main():
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         closed_loop as cl)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
-        admm_variants as av)
+        ieee_fast_check)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         vel_cases as vc)
-    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
-        vel_scan_variants as vv)
-    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
-        walk_variants as wv)
     from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
         profile_stages)
     mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
@@ -2512,27 +2469,23 @@ def main():
 
     # ---- 2. kernels -------------------------------------------------------
     t0 = time.perf_counter()
-    wv_build = wv.start_build(cuda_build)      # alongside the kernels
-    av_build = av.start_build(cuda_build)
     built = cuda_build.build_all()
-    bt_variant, _ = wv.load_variants(wv_build)
-    admm_variant, _ = av.load_variants(av_build)
     print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{sorted(built) or 'nothing (cached)'} and "
-          f"testing_tools/{{walk,admm}}_variants.cu", flush=True)
+          f"{sorted(built) or 'nothing (cached)'}", flush=True)
     for name, (secs, log) in sorted(built.items()):
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                 if "registers" in ln]
         print(f"  {name}: nvcc {secs:.1f} s; ptxas: {' | '.join(regs)}")
         if name == "admm_vel":      # each instance by name: warp and block
-            for ln in av.ptxas_lines(log):
-                print(f"    {ln}")
+            for ln in log.splitlines():
+                if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                    print(f"    {ln.strip()}")
 
     # the branch-free division and square root of the velocity scans
     # (csrc/ieee_fast.cuh) against the plain operators, 2^32 operands a case
     t0 = time.perf_counter()
-    _, ieee_check = vv.build_variants(cuda_build)
-    vv.check_ieee_fast(ieee_check, cuda_build)
+    ieee_fast_check.check_ieee_fast(ieee_fast_check.build(cuda_build),
+                                    cuda_build)
     print(f"ieee_fast: held against / and sqrtf in "
           f"{time.perf_counter() - t0:.1f} s (build included)", flush=True)
 
@@ -2593,12 +2546,6 @@ def main():
           f"wrapper calls), bound {p['bound_ms']:.5f} ms ({p['bound_by']}: "
           f"{p['bytes']} B), {100 * p['bound_ms'] / p['ms']:.1f} % of it; "
           f"plain {p['plain_ms']:.4f} ms", flush=True)
-    # the walk alone on a table already on chip: one walk's chain
-    chain_ms, _ = wv.walk_chain(_device_ms, cuda_build, bt_variant,
-                                *calls["backtrace"][0])
-    stats["backtrace"]["chain_floor_ms"] = chain_ms
-    print(f"chain backtrace call: one walk on chip {chain_ms:.5f} ms "
-          f"(walk_only, slope between 1 and {wv.REPS} walks)", flush=True)
 
     n_ragged = ragged_vel_scans(cuda_velocity.CHUNK)
     print(f"ragged shapes: vel_scan and vel_scan_cgg bit-equal to the plain "
@@ -2941,12 +2888,6 @@ def main():
                 if name in REDESIGNED:
                     b_ms, by = _bound(*_cost(name, a, kw, ko))
                     bound = f"; bound {b_ms:.5f} ms ({by})"
-                if name == "backtrace":
-                    chain_ms, _ = wv.walk_chain(_device_ms, cuda_build,
-                                                bt_variant, a, kw)
-                    bound += f"; one walk on chip {chain_ms:.5f} ms"
-                    if tname == "oval":
-                        stats[name]["facade_chain_floor_ms"] = chain_ms
                 print(f"kernel {name} facade {tname} ticks "
                       f"{list(rec_ticks)} call [{shape}]: max|kernel-plain|="
                       f"{err:.3g} (bit-equal) kernel {ms:.4f} ms on the "
@@ -3058,16 +2999,7 @@ def main():
         print("profile sqp tick: the profiler saw no device time (not "
               "measured)")
     a, kw = sqp_rec.calls["admm_vel"][0]
-    # one row's chain of 150 steps: the slope between 150 and 600 steps on
-    # the fleet call's first row alone
-    admm_chain_ms, one_ms, four_ms = av.chain_floor(_device_ms, a[0], kw)
-    print(f"chain admm_vel fleet call row 0: one row's {av.STEPS} steps "
-          f"{admm_chain_ms:.5f} ms on {card} (slope between {av.STEPS} and "
-          f"{4 * av.STEPS} steps); kernel on 1 row {one_ms:.4f} ms, on 4 "
-          f"rows {four_ms:.4f} ms", flush=True)
-    stats["admm_vel"] = admm_held_and_timed("fleet call", a[0], kw, 3,
-                                            admm_variant, admm_chain_ms)
-    stats["admm_vel"]["chain_floor_ms"] = admm_chain_ms
+    stats["admm_vel"] = admm_held_and_timed("fleet call", a[0], kw, 3)
     stats["admm_vel"]["plain_launches"] = plain_admm_launches(a[0], kw)
     print(f"plain admm_vel, one fleet solve on the card: "
           f"{stats['admm_vel']['plain_launches']} device kernels",
@@ -3128,10 +3060,8 @@ def main():
           f"{SQP_TICKS_OVAL - 1}) p50 {sqp_p50:.2f} ms p99 {sqp_p99:.2f} ms; "
           f"plain replay {t_p:.1f} s", flush=True)
     a, kw = fac_rec.calls["admm_vel"][0]
-    fac = admm_held_and_timed("facade tick 15 call", a[0], kw, 3,
-                              admm_variant, admm_chain_ms)
+    fac = admm_held_and_timed("facade tick 15 call", a[0], kw, 3)
     stats["admm_vel"]["facade_tick_ms"] = fac["ms"]
-    stats["admm_vel"]["facade_baseline_ms"] = fac["baseline_ms"]
     stats["admm_vel"]["facade_tick_wrapper_ms"] = fac["wrapper_ms"]
     stats["admm_vel"]["facade_plain_ms"] = fac["plain_ms"]
     stats["admm_vel"]["facade_bound_ms"] = fac["bound_ms"]
@@ -3164,9 +3094,8 @@ def main():
     lad_calls = [(a, kw) for a, kw in lad_rec.calls["admm_vel"]
                  if a[0]["q"].dim() == 1]
     lad = admm_held_and_timed("ladder call", lad_calls[0][0][0],
-                              lad_calls[0][1], 3, admm_variant, admm_chain_ms)
+                              lad_calls[0][1], 3)
     stats["admm_vel"]["ladder_ms"] = lad["ms"]
-    stats["admm_vel"]["ladder_baseline_ms"] = lad["baseline_ms"]
     print(f"facade sqp unclosed_monteblanco {SQP_TICKS_UNCLOSED} ticks "
           f"(start layer {SQP_START_LAYER_UNCLOSED}) on {card}: SQP backup "
           f"ladder {len(ladder)} times, one admm_vel launch each", flush=True)
@@ -3239,9 +3168,6 @@ def main():
                          plain_ms=s["plain_ms"],
                          bound_ms=s["bound_ms"], bound_by=s["bound_by"],
                          library_ms=None,
-                         chain_floor_ms=s.get("chain_floor_ms"),
-                         facade_chain_floor_ms=s.get(
-                             "facade_chain_floor_ms"),
                          launches_fleet_tick=launches.get(name, 0),
                          launches_facade_tick=facade_counts.get(name, 0.0),
                          launches_dense_window=dense_counts[name],
@@ -3257,9 +3183,6 @@ def main():
                          facade_bound_ms=s.get("facade_bound_ms"),
                          ladder_ms=s.get("ladder_ms"),
                          design=s.get("design"),
-                         baseline_ms=s.get("baseline_ms"),
-                         facade_baseline_ms=s.get("facade_baseline_ms"),
-                         ladder_baseline_ms=s.get("ladder_baseline_ms"),
                          bound_nofma_ms=s.get("bound_nofma_ms"),
                          launches_sharded_tick_nccl_world1=md["nccl"][name],
                          launches_compiled_sharded_dp_replay=sharded_replay[

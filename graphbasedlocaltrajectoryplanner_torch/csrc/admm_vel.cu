@@ -29,8 +29,7 @@
 // reciprocals are made once a solve, and a step whose operands leave the
 // window divides again with __fdiv_rn.  r_prim and r_dual are warp
 // max-reductions.  The cyclic layout (i = l + 32 k) and the tables in
-// registers are the other candidates, kept for measurement
-// (testing_tools/admm_variants.cu).
+// registers were the other candidates measured (PERF.md, row 7).
 //
 // Block design, n > 128 (the kernel's first design): one block a row,
 // one thread a point (K points a thread where n exceeds the block), the
@@ -41,9 +40,8 @@
 // 67 TFLOP/s of fused multiply-adds (about 80 float32 operations a point a
 // step), which this kernel cannot use: without contraction a lane starts
 // one add or multiply a cycle, 33.5e12 a second on 132 SMs.  Measured
-// against both, and against the chain of a step (about 9 dependent
-// shuffles and their arithmetic), in chip_smoke.py and
-// testing_tools/admm_variants.py.
+// against both in chip_smoke.py; the chain of a step (about 9 dependent
+// shuffles and their arithmetic) is the floor PERF.md records for row 7.
 //
 // Bit-equal to the plain version: every operation is the plain version's,
 // in its order, each rounded on its own (the __f*_rn intrinsics; built with
@@ -352,7 +350,7 @@ admm_vel_kernel(Args a) {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARP_N_MAX = 128;   // the largest n of the warp design
-// chosen by measurement in testing_tools/admm_variants.py (PERF.md, row 7)
+// chosen by measurement (PERF.md, row 7)
 constexpr int WARP_ROWS = 2;          // rows (warps) a block
 constexpr bool WARP_CYCLIC = false;   // point i at lane i / K, slot i % K
 constexpr bool WARP_TBL_REGS = false; // the PCR tables in shared memory

@@ -26,9 +26,9 @@
 //     they have landed (cp.async.mbarrier.arrive.noinc).
 //   Copies of 2 steps stream faster than copies of one (2,304 bytes at
 //   N = 24); 3 stages of 2 leave room for 4 blocks an SM, whose 16 warps
-//   hide the relax.  Deeper or wider rings cost blocks an SM
-//   (testing_tools/walk_variants.py times the shapes); where N is so large
-//   that this ring does not fit, plan() takes fewer steps and stages.
+//   hide the relax.  Deeper or wider rings cost blocks an SM (measured
+//   on the H100); where N is so large that this ring does not fit, plan()
+//   takes fewer steps and stages.
 // The relax waits on the stage's barrier only: lane m owns target m (and
 // m + 32, ...), reads its column of the slab conflict-free and the
 // frontier from shared memory, 16 bytes at a time where N % 4 == 0, and

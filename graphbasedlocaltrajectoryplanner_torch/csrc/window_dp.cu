@@ -46,8 +46,7 @@
 //   * Frontier and backpointers leave by plain stores from the lane that
 //     holds them, four 32-byte runs a warp and array.  Keeping the
 //     (4, H+1, N) rows in shared memory until the end was measured and is
-//     no faster, for 21.5 KB more shared memory a block at H=27, N=24
-//     (testing_tools/window_dp_variants.py).
+//     no faster, for 21.5 KB more shared memory a block at H=27, N=24.
 //   * The index tensors are read as the caller has them, int32 or int64:
 //     each conversion before the launch would be a kernel of its own.
 //

@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -115,26 +116,46 @@ def load(name: str):
     return fn
 
 
-# each kernel's name and its wrapper (module and function under ops/), whose
-# ``launches`` the wrapper moves where it launches the kernel
+class Kernel(NamedTuple):
+    wrapper: str    # module and function under ops/, whose ``launches``
+    #                 the wrapper moves where it launches the kernel
+    source: str     # the CUDA source, from the repository's root
+    replaces: str   # the JAX package's site it stands for
+
+
+_SRC = "graphbasedlocaltrajectoryplanner_torch/csrc/"
+_JAX = "graphbasedlocaltrajectoryplanner_tpu/"
+# each kernel by name
 KERNEL_WRAPPERS = dict(
-    hit_slab="cuda_collision.hit_slab",
-    window_dp="cuda_window.fused_window_dp",
-    backtrace="cuda_backtrace.backtrace_walk",
-    vel_scan_cgg="cuda_velocity.vel_scan_cgg",
-    vel_scan="cuda_velocity.vel_scan",
-    minplus="cuda_minplus.minplus_scan",
-    admm_vel="cuda_admm.admm_vel",
-    assemble="cuda_assemble.assemble_path",
-    prefix_sum="cuda_prefix.blocked_cumsum")
+    hit_slab=Kernel("cuda_collision.hit_slab", _SRC + "hit_slab.cu",
+                    _JAX + "ops/pallas_collision.py:112"),
+    window_dp=Kernel("cuda_window.fused_window_dp", _SRC + "window_dp.cu",
+                     _JAX + "ops/pallas_window.py:379"),
+    backtrace=Kernel("cuda_backtrace.backtrace_walk", _SRC + "backtrace.cu",
+                     _JAX + "ops/pallas_backtrace.py:69"),
+    vel_scan_cgg=Kernel("cuda_velocity.vel_scan_cgg", _SRC + "vel_scan.cu",
+                        _JAX + "ops/pallas_velocity.py:357"),
+    vel_scan=Kernel("cuda_velocity.vel_scan", _SRC + "vel_scan.cu",
+                    _JAX + "ops/pallas_velocity.py:160"),
+    minplus=Kernel("cuda_minplus.minplus_scan", _SRC + "minplus.cu",
+                   _JAX + "ops/pallas_minplus.py:90"),
+    # no Pallas kernel: the JAX package's ADMM is a lax.scan in XLA
+    admm_vel=Kernel("cuda_admm.admm_vel", _SRC + "admm_vel.cu",
+                    _JAX + "ops/qp.py:211"),
+    # no Pallas kernel: the JAX package assembles the paths in XLA
+    assemble=Kernel("cuda_assemble.assemble_path", _SRC + "assemble.cu",
+                    _JAX + "planner/pathgen.py:377"),
+    # no Pallas kernel: the JAX package's arc lengths are jnp.cumsum in XLA
+    prefix_sum=Kernel("cuda_prefix.blocked_cumsum", _SRC + "prefix_sum.cu",
+                      _JAX + "planner/velplan.py:618"))
 
 
 def wrappers() -> dict:
     """Each kernel's wrapper by name (:data:`KERNEL_WRAPPERS`)."""
     import importlib
     out = {}
-    for name, path in KERNEL_WRAPPERS.items():
-        mod, fn = path.split(".")
+    for name, k in KERNEL_WRAPPERS.items():
+        mod, fn = k.wrapper.split(".")
         out[name] = getattr(importlib.import_module(
             f"{__package__}.{mod}"), fn)
     return out

@@ -91,13 +91,6 @@ def opponent_summary(glob_rl, glob_el, obj_pos, v_obj, dyn_model_exp,
     return opp_stop_dist, vel_r, el_r, _cumsum(el_r, kernels=kernels)
 
 
-def _runout_velocity(roll_vel, roll_cum, target_dist):
-    """Raceline velocity after the opponent travelled ``target_dist``."""
-    idx = torch.sum(roll_cum < target_dist[:, None], dim=-1) + 1
-    idx = torch.clamp(idx, 0, roll_vel.shape[-1] - 1)
-    return torch.where(target_dist <= 0.0, roll_vel[:, 0], _at(roll_vel, idx))
-
-
 def _sqp_m_window(cols, pref_idx, l_real, m: int):
     """VpSQP's m-point window of a padded per-point table: rows
     ``pref_idx .. pref_idx + m - 1``; beyond the real slice length
@@ -156,34 +149,6 @@ def _sqp_follow_vmax(m: int, vel_max, v_obj, obj_dist, safety_d, veh_length,
     return torch.where(idx_m < idx_vmax[..., None], vel_max, tail)
 
 
-def _sqp_tire_end(win, tire_end_idx, tire_end_mps2, veh_turn):
-    """The gg of the m-point windows ``win`` (..., m, 4) [kappa el ax ay]
-    with the tire-end gg on the last ``tire_end_idx`` points, and the
-    conservative terminal velocity ``sqrt(tire_end_mps2 * veh_turn)``;
-    ``tire_end_mps2`` a scalar or one per trailing row.  Returns (gg (...,
-    m, 2), v_end)."""
-    m = win.shape[-2]
-    def f32(v):
-        return cuda_graph.as_tensor(v, win.dtype, win.device)
-    tire = f32(tire_end_mps2)
-    in_tire = torch.arange(m, device=win.device) >= m - tire_end_idx
-    gg = torch.where(in_tire[:, None], tire[..., None, None], win[..., 2:4])
-    return gg, torch.sqrt(tire * f32(veh_turn))
-
-
-def _sqp_profiles(win, gg, v_end, v_max, v_start, x0v, machines, drag_coeff,
-                  m_veh, kernels):
-    """The QP profiles of the m-point windows ``win`` (..., m, 4) in one
-    batched solve (one kernel launch on the card): ``gg`` and ``v_end``
-    from :func:`_sqp_tire_end` (the terminal velocity at the window's
-    end), ``v = v_start`` pinned at its start, ``x0v`` (..., m) the
-    warm-start guess.  Returns (vx (..., m), the ADMM's residuals)."""
-    return qp.qp_vel_profile(
-        win[..., 0], win[..., 1], gg, machines, v_max, v_start, v_end=v_end,
-        end_idx=win.shape[-2], drag_coeff=drag_coeff, m_veh=m_veh, pin_idx=0,
-        x0_v=x0v, kernels=kernels)
-
-
 def _place_back(vx_m, shift, P: int):
     """m-grid profiles (..., m) back on the padded path rows ``shift + i``;
     rows beyond the window zero."""
@@ -193,11 +158,303 @@ def _place_back(vx_m, shift, P: int):
                                     shift, 64)[..., 0]
 
 
-def _sqp_store(vx_raw_m, P: int):
-    """The warm-start store: the m grid values, then the last one repeated
-    to P rows (the handler's shift-and-fill push reads them)."""
-    return torch.cat([vx_raw_m, vx_raw_m[..., -1:].expand(
-        vx_raw_m.shape[:-1] + (P - vx_raw_m.shape[-1],))], dim=-1)
+def _follow_control(ctrl_cp, ctrl_kd, ctrl_kp, ctrl_tanw, safety_d,
+                    veh_length, obj_dist, v_obj, vel_est, vel_max,
+                    control_type: str):
+    """The follow mode's control law: (control_d, the velocity it holds
+    behind the opponent, at most ``vel_max``)."""
+    ctrl = {"c_p": ctrl_cp, "k_d": ctrl_kd, "k_p": ctrl_kp, "tan_w": ctrl_tanw}
+    control_d = ctrl_cp * safety_d + veh_length
+    v_control = torch.minimum(torch.clamp(
+        velops.follow_control_vel(ctrl, obj_dist, control_d, v_obj, vel_est,
+                                  control_type), min=0.0), vel_max)
+    return control_d, v_control
+
+
+def _v_idx(s, n_valid, red_len):
+    """The normal branch's end per path: ``n_valid``, or on a reduced
+    horizon the first point 5 m short of the spline end.  ``s`` (..., P)
+    leading-zero arc lengths; ``n_valid``, ``red_len`` (...)."""
+    P = s.shape[-1]
+    spl_len = _at(s, torch.clamp(n_valid - 1, 0, P - 1))
+    below = s[..., 1:] < (spl_len[..., None] - 5.0)  # the sums of el[:-1]
+    v_idx_red = torch.argmin(below.to(torch.int32), dim=-1) + 1
+    v_idx_red = torch.where((v_idx_red == 1) & (n_valid > 1), n_valid,
+                            v_idx_red)
+    return torch.where(red_len, v_idx_red, n_valid)
+
+
+def _normal_bound(vx_normal, v_idx, pref_idx, vel_start, v_max_offset, idx):
+    """The normal profiles (..., P) zeroed from ``v_idx`` on (wholly where
+    nothing is left after the prefix) and their velocity bound."""
+    vx_normal = torch.where(idx >= v_idx[..., None], 0.0, vx_normal)
+    degenerate = (v_idx - pref_idx) <= 1
+    vx_normal = torch.where(degenerate[..., None], 0.0, vx_normal)
+    bound = torch.abs(_at(vx_normal, pref_idx) - vel_start) < v_max_offset
+    return vx_normal, torch.where(degenerate, False, bound)
+
+
+def _profile(path, s, vx, n_valid, idx, filt_window: int = 1):
+    """The profile [s x y psi kappa vx ax] (..., P, 7) of ``vx`` smoothed
+    over ``filt_window`` (``velops.conv_filt``) on ``path``: ax -5 m/s^2
+    where the car stands before the path end (``n_valid`` broadcasts
+    against (..., P-1)), zero at the last point."""
+    vx = velops.conv_filt(vx, filt_window)
+    ax = velops.calc_ax_profile(vx, path[..., 4])
+    stationary = torch.isclose(vx[..., :-1], torch.zeros_like(ax)) \
+        & torch.isclose(ax, torch.zeros_like(ax)) & (idx[:-1] < n_valid - 1)
+    ax = torch.where(stationary, -5.0, ax)
+    ax_f = torch.cat([ax, torch.zeros_like(ax[..., :1])], dim=-1)
+    return torch.stack([s, path[..., 0], path[..., 1], path[..., 2],
+                        path[..., 3], vx, ax_f], dim=-1)
+
+
+# ---- the fb recurrences: a row is one recurrence for each of N paths, its
+# per-step (N, P-1) columns and its (N,) start velocity; ``g`` the (N, P, 2)
+# gg it streams, None for the scan's constant-gg instance ---------------------
+
+def _gg(g, rows):
+    return () if g is None else (g[:, rows, 0], g[:, rows, 1])
+
+
+def _row(k_abs, g, e, v_lim, v0):
+    """A forward or brake row (brake: ``v_lim`` infinite)."""
+    k = k_abs[:, :-1]
+    gs = _gg(g, slice(None, -1))
+    return (k, *gs, k, *gs, e[:, :-1], v_lim, v0)
+
+
+def _fwd_row(k_abs, g, e, v_bound, v0):
+    """A forward row under the pointwise bound ``v_bound`` (N, P)."""
+    return _row(k_abs, g, e, v_bound[:, 1:], torch.minimum(v_bound[:, 0], v0))
+
+
+def _bwd_row(k_abs, g, e, v_f):
+    """The backward refinement of the forward profile ``v_f`` (N, P), on
+    flipped inputs."""
+    def flip(x):
+        return torch.flip(x, dims=[-1])
+    return (flip(k_abs[:, 1:]), *map(flip, _gg(g, slice(1, None))),
+            flip(k_abs[:, :-1]), *map(flip, _gg(g, slice(None, -1))),
+            flip(e[:, :-1]), flip(v_f[:, :-1]), v_f[:, -1])
+
+
+def _scan(const_gg, machines, dyn_model_exp, drag_coeff, m_veh, kernels):
+    """The stacked-recurrence scan of :func:`_lvl`: the constant-gg
+    instance for ``const_gg`` = (ax, ay) (rows without gg streams), else
+    per-row gg streams (kernel 5 on the card)."""
+    if const_gg is None:
+        return lambda *c: velops.stacked_vel_scan_auto(
+            *c, machines, dyn_model_exp, drag_coeff, m_veh, kernels=kernels)
+    ax, ay = float(const_gg[0]), float(const_gg[1])
+    return lambda *c: velops.stacked_vel_scan_cgg_auto(
+        *c, machines, dyn_model_exp, drag_coeff, m_veh, ax, ay,
+        kernels=kernels)
+
+
+def _lvl(rows, modes, scan):
+    """One dependency level: the r rows stacked to N x r rows of one scan
+    launch.  Returns (N, r, P)."""
+    cols = list(zip(*rows))
+    N, T = cols[0][0].shape
+    r = len(rows)
+    per_step = [torch.stack(c, dim=1).reshape(N * r, T) for c in cols[:-1]]
+    v_init = torch.stack(cols[-1], dim=1).reshape(N * r)
+    mode = cuda_graph.const_vector(modes, torch.int32,
+                                   v_init.device).repeat(N)
+    return scan(*per_step, v_init, mode).reshape(N, r, T + 1)
+
+
+def _fb_profiles(kappa, el, s, n_valid, v_idx, red_len, v_end_rl, c_len,
+                 vel_plan, vel_max, ay, gg_pref, gg, fs: int, v_control,
+                 obj_dist, safety_d, veh_length, opp_stop_dist, roll_vel,
+                 roll_cum, idx, scan, kernels: bool):
+    """The fb backend on N groups of k paths (a scenario's slots, or one
+    action's path), the follow profile on each group's path ``fs``: every
+    path's brake prefix (level 0), then the follow's ego brake, segment-2
+    forward and backward and unconstrained forward and backward beside
+    every path's normal forward and backward, as three more levels of one
+    stacked scan each (2k + 5 rows a group).
+
+    :param kappa, el, s: (N, k, P); ``n_valid``, ``v_idx``, ``red_len``,
+        ``v_end_rl`` (N, k); ``c_len``, ``vel_plan``, ``v_control``,
+        ``obj_dist`` (N,); ``roll_vel``, ``roll_cum`` (N, F_CAP); ``ay``
+        broadcast against (N, k, P); ``gg_pref`` (the brake prefix's) and
+        ``gg`` the rows' gg streams, both None for the constant-gg scan.
+    :returns: (pref_idx, vel_start (N, k), v_decel, masked, vx_normal
+        (N, k, P), qp_status (N, k), vx_sqp (N, k, P) (both zero),
+        vx_follow (N, P), follow_bound, too_close (N,)).
+    """
+    N, k, P = el.shape
+    row_inf = torch.full((N, P - 1), math.inf, dtype=el.dtype,
+                         device=el.device)
+
+    # ---- level 0: brake prefix to a lowered v_max, every path --------------
+    prefix_active = vel_plan > (vel_max + 0.1)                    # (N,)
+    kabs = torch.abs(kappa)
+    el_pref = torch.where(idx < c_len[:, None, None], 0.0, el)
+    v_decel = _lvl([_row(kabs[:, j], gg_pref, el_pref[:, j], row_inf,
+                         vel_plan) for j in range(k)],
+                   [velops.MODE_BRAKE] * k, scan)                 # (N, k, P)
+    reach = v_decel <= vel_max
+    first_reach = torch.argmax(reach.to(torch.int32), dim=-1)
+    first_reach = torch.where(torch.any(reach, dim=-1), first_reach, P - 1)
+    pref_idx = torch.where(prefix_active[:, None],
+                           torch.maximum(first_reach, c_len[:, None]),
+                           c_len[:, None])                        # (N, k)
+    vel_start = torch.where(prefix_active[:, None], _at(v_decel, pref_idx),
+                            vel_plan[:, None])
+    masked = idx < pref_idx[..., None]
+    kabs_m = torch.abs(torch.where(masked, 0.0, kappa))
+    el_m = torch.where(masked, 0.0, el)
+
+    # ---- follow scalars -----------------------------------------------------
+    safety_total = safety_d + veh_length
+    too_close = (obj_dist - safety_total) < 0.0
+    s_f = _cumsum0(el_m[:, fs], kernels=kernels)                  # (N, P)
+    s_stop = obj_dist - safety_total + opp_stop_dist
+    stop_idx = torch.clamp(torch.sum(s_f < s_stop[:, None], dim=-1), 0,
+                           P - 1)
+    # the opponent's raceline velocity after its run-out
+    run = opp_stop_dist - ((obj_dist - safety_total + opp_stop_dist)
+                           - (_at(s[:, fs], torch.clamp(n_valid[:, fs] - 1, 0,
+                                                        P - 1))
+                              - _at(s[:, fs], pref_idx[:, fs])))
+    i_run = torch.clamp(torch.sum(roll_cum < run[:, None], dim=-1) + 1, 0,
+                        roll_vel.shape[-1] - 1)
+    opp_vel_at = torch.where(run <= 0.0, roll_vel[:, 0], _at(roll_vel, i_run))
+    v_end_f = torch.where(s_stop > s_f[:, -1], opp_vel_at, 0.0)
+
+    # ---- normal bounds ------------------------------------------------------
+    v_end = torch.where(red_len, 0.0, v_end_rl)
+    tail = idx >= v_idx[..., None] - 1
+    el_n = torch.where(tail, 0.0, el_m)
+    v_lat = torch.sqrt(ay / torch.clamp(kabs_m, min=1e-9))
+    v0 = torch.minimum(v_lat, vel_max)
+    v0_n = torch.where(tail, torch.minimum(v0, v_end[..., None]), v0)
+
+    # ---- level 1: ego brake + unconstrained fwd (follow) + normal fwd ------
+    kf, ef, vsf = kabs_m[:, fs], el_m[:, fs], vel_start[:, fs]
+    lvl1 = _lvl([_row(kf, gg, ef, row_inf, vsf),
+                 _fwd_row(kf, gg, ef, v0[:, fs], vsf)]
+                + [_fwd_row(kabs_m[:, j], gg, el_n[:, j], v0_n[:, j],
+                            vel_start[:, j]) for j in range(k)],
+                [velops.MODE_BRAKE, velops.MODE_FWD] + [velops.MODE_FWD] * k,
+                scan)
+    v_ego_brake, vf_u, vf_n = lvl1[:, 0], lvl1[:, 1], lvl1[:, 2:]
+    ego_stop_d = velops.stop_distance(v_ego_brake, ef)
+
+    # ---- follow segment-1 hand-off -----------------------------------------
+    seg1_active = (vsf > v_control) & (stop_idx >= 2)
+    below_c = v_ego_brake <= v_control[:, None]
+    idx_c_raw = torch.argmax(below_c.to(torch.int32), dim=-1)
+    idx_c_raw = torch.where(torch.any(below_c, dim=-1), idx_c_raw, stop_idx)
+    idx_c = torch.where(seg1_active,
+                        torch.minimum(torch.where(idx_c_raw == 0, stop_idx,
+                                                  idx_c_raw), stop_idx),
+                        torch.zeros_like(stop_idx))
+    vx_control_start = torch.where(seg1_active, _at(v_ego_brake, idx_c), vsf)
+    el_seg2 = torch.where(idx < stop_idx[:, None], ef, 0.0)
+    el_seg2 = torch.where(idx < idx_c[:, None], 0.0, el_seg2)
+    v0_s = torch.minimum(v_lat[:, fs], v_control[:, None])
+    v0_s = torch.where(idx >= stop_idx[:, None],
+                       torch.minimum(v0_s, v_end_f[:, None]), v0_s)
+
+    # ---- level 2: seg2 fwd + unconstrained bwd (follow) + normal bwd -------
+    lvl2 = _lvl([_fwd_row(kf, gg, el_seg2, v0_s,
+                          torch.minimum(vx_control_start, v_control)),
+                 _bwd_row(kf, gg, ef, vf_u)]
+                + [_bwd_row(kabs_m[:, j], gg, el_n[:, j], vf_n[:, j])
+                   for j in range(k)],
+                [velops.MODE_FWD, velops.MODE_BWD] + [velops.MODE_BWD] * k,
+                scan)
+    vf_s = lvl2[:, 0]
+    vx_compl = torch.flip(lvl2[:, 1], dims=[-1])
+    vx_normal = torch.flip(lvl2[:, 2:], dims=[-1])                # (N, k, P)
+
+    # ---- level 3: seg2 bwd -------------------------------------------------
+    v_seg2 = torch.flip(_lvl([_bwd_row(kf, gg, el_seg2, vf_s)],
+                             [velops.MODE_BWD], scan)[:, 0], dims=[-1])
+
+    # ---- follow assembly ---------------------------------------------------
+    follow_bound = torch.abs(_at(v_seg2, idx_c) - vx_control_start) <= 1.0
+    follow_bound &= ~((~seg1_active) & (stop_idx < 2))
+    vx_follow = torch.where(idx < idx_c[:, None], v_ego_brake, v_seg2)
+    vx_follow = torch.where(idx > stop_idx[:, None], 0.0, vx_follow)
+    follow_bound &= torch.abs(vx_follow[:, 0] - vsf) <= 1.0
+    cannot_hold = ego_stop_d >= s_stop
+    vx_follow = torch.where(cannot_hold[:, None], v_ego_brake, vx_follow)
+    follow_bound = torch.where(cannot_hold, True, follow_bound)
+    vx_follow = torch.minimum(vx_follow, vx_compl)
+    return (pref_idx, vel_start, v_decel, masked, vx_normal,
+            torch.zeros((N, k), dtype=torch.int32, device=el.device),
+            torch.zeros_like(el), vx_follow, follow_bound, too_close)
+
+
+def _sqp_qps(kappa, el, gg, n_valid, v_idx, c_len, vel_plan, vel_max,
+             v_max_offset, fs: int, is_follow, overtake, obj_dist, v_obj,
+             safety_d, veh_length, x0, veh_turn, tire_end_idx: int,
+             tire_end_mps2, sqp_m, sqp_step, machines, drag_coeff, m_veh, idx,
+             kernels: bool):
+    """The sqp backend (the reference's VpSQP) on the paths of
+    :func:`_fb_profiles`: no brake prefix; each path's normal QP over its
+    ``v_idx``-cut slice and the follow QP with the pointwise opponent cap,
+    over the fixed ``sqp_m``-point window from the cut with the unscaled
+    ``gg`` (N, P, 2), the tire-end gg over the last ``tire_end_idx`` points
+    and the conservative terminal velocity, all N (k + 1) as one batched
+    solve (one ADMM kernel launch on the card); then the status hand-off:
+    infeasible solves zeroed, the normal ones of ``overtake`` paths also
+    inaccurate ones; ``too_close`` never raised.  ``x0`` (N, k, P) the warm
+    start (None: 20 m/s); ``tire_end_mps2`` 0-dim or (N,); ``is_follow``
+    (broadcast against (N, k)) picks the follow QP's status and profile for
+    the store.  Returns as :func:`_fb_profiles`.
+    """
+    N, k, P = el.shape
+    dev = el.device
+    m = P if sqp_m is None else min(sqp_m, P)
+    pref_idx = c_len[:, None].expand(N, k)
+    vel_start = vel_plan[:, None].expand(N, k)
+    with cuda_graph.span("gltpl.sqp_window"):
+        x0v = (torch.full_like(el, 20.0) if x0 is None else x0)[..., :m]
+        cols = torch.cat([kappa[..., None], el[..., None],
+                          gg[:, None].expand(N, k, P, 2)], dim=-1)
+        win_n = _sqp_m_window(cols, c_len[:, None], v_idx - pref_idx, m)
+        win_f = _sqp_m_window(cols[:, fs], c_len, n_valid[:, fs] - c_len, m)
+        vmax_f = _sqp_follow_vmax(m, vel_max, v_obj, obj_dist, safety_d,
+                                  veh_length, gg[:, 0, 0], sqp_step)  # (N, m)
+        win = torch.cat([win_n, win_f[:, None]], dim=1)       # (N, k+1, m, 4)
+        tire = cuda_graph.as_tensor(tire_end_mps2, el.dtype, dev)[..., None]
+        in_tire = torch.arange(m, device=dev) >= m - tire_end_idx
+        gg_w = torch.where(in_tire[:, None], tire[..., None, None],
+                           win[..., 2:4])
+        v_end = torch.sqrt(tire * cuda_graph.as_tensor(veh_turn, el.dtype,
+                                                       dev))
+        vmax = torch.cat([vel_max.expand(N, k, m), vmax_f[:, None]], dim=1)
+        vs = torch.cat([vel_start, vel_start[:, fs:fs + 1]], dim=1)
+        x0w = torch.cat([x0v, x0v[:, fs:fs + 1]], dim=1)
+    vx, res = qp.qp_vel_profile(
+        win[..., 0], win[..., 1], gg_w, machines, vmax, vs, v_end=v_end,
+        end_idx=m, drag_coeff=drag_coeff, m_veh=m_veh, pin_idx=0, x0_v=x0w,
+        kernels=kernels)
+    with cuda_graph.span("gltpl.sqp_handoff"):
+        st = qp.qp_solver_status(res)
+        st_n, st_f = st[:, :k], st[:, k:]                 # (N, k), (N, 1)
+        zero_n = (st_n == -3) | (overtake & (st_n == 2))
+        vx_qn = torch.where(zero_n[..., None], 0.0, vx[:, :k])
+        vx_qf = torch.where((st_f == -3)[..., None], 0.0, vx[:, k:])
+        shift = c_len[:, None]
+        vx_follow = _place_back(vx_qf, shift, P)                  # (N, 1, P)
+        follow_bound = torch.abs(_at(vx_follow, shift) - vel_plan[:, None]) \
+            < v_max_offset
+        # the warm-start store: the m grid values, the last repeated to P
+        vx_sqp = torch.where(is_follow[..., None], vx_qf, vx_qn)
+        vx_sqp = torch.cat([vx_sqp, vx_sqp[..., -1:].expand(
+            N, k, P - m)], dim=-1)
+        return (pref_idx, vel_start, torch.zeros_like(el),
+                idx < pref_idx[..., None], _place_back(vx_qn, shift, P),
+                torch.where(is_follow, st_f, st_n), vx_sqp, vx_follow[:, 0],
+                follow_bound[:, 0],
+                torch.zeros((N,), dtype=torch.bool, device=dev))
 
 
 def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
@@ -217,16 +474,14 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
     from ``vel_plan``.
 
     ``fb``: the follow solver runs only for the follow slot (13 recurrence
-    rows per scenario over 4 dependency levels) — on the kernel's
-    constant-gg instance with ``const_gg``, else with per-row gg streams
-    from ``gg`` (kernel 5 on the card).
+    rows per scenario over 4 dependency levels, :func:`_fb_profiles`) — on
+    the kernel's constant-gg instance with ``const_gg``, else with per-row
+    gg streams from ``gg`` (kernel 5 on the card).
 
-    ``sqp``: the reference's SQP planner at fleet scale — no brake prefix,
-    the 4 normal-branch QPs of a scenario and its follow QP (pointwise
-    opponent cap) over a fixed ``sqp_m``-point window, all 5B as one
-    batched ADMM solve; ``too_close`` never raised; the status hand-off per
-    slot (infeasible solves zeroed, overtake slots also on inaccurate
-    ones); no smoothing.
+    ``sqp``: the reference's SQP planner at fleet scale
+    (:func:`_sqp_qps`) — the 4 normal-branch QPs of a scenario and its
+    follow QP, all 5B as one batched ADMM solve; overtake slots (2 and 3)
+    also zeroed on inaccurate solves; no smoothing.
 
     ``filt_window`` > 1 smooths every fb profile with the moving average
     of ``ops/velocity.conv_filt`` (the handler's smoothing; ignored under
@@ -256,246 +511,39 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
     idx = torch.arange(P, device=dev)
     kappa = paths[..., 3]
     el = paths[..., 4]                                        # (B, 4, P)
-    kabs = torch.abs(kappa)
-    row_inf = torch.full((B, P - 1), math.inf, dtype=paths.dtype, device=dev)
-    ctrl = {"c_p": ctrl_cp, "k_d": ctrl_kd, "k_p": ctrl_kp, "tan_w": ctrl_tanw}
-    flip = lambda x: torch.flip(x, dims=[-1])                 # noqa: E731
     sqp = vp_backend == "sqp"
     if not sqp and vp_backend != "fb":
         raise ValueError(f"unknown velocity backend {vp_backend!r}")
-
-    def _stack(rows, modes):
-        cols = list(zip(*rows))
-        per_step = [torch.stack(c, dim=1) for c in cols[:-1]]   # (B, r, T)
-        r, T = per_step[0].shape[1:]
-        per_step = [x.reshape(B * r, T) for x in per_step]
-        v_init = torch.stack(cols[-1], dim=1).reshape(B * r)
-        mode = cuda_graph.const_vector(modes, torch.int32, dev).repeat(B)
-        return per_step, v_init, mode, r, T
-
-    if const_gg is not None:
-        def _lvl(rows, modes):
-            (k1, k2, d_, vl), vi, mode, r, T = _stack(rows, modes)
-            out = velops.stacked_vel_scan_cgg_auto(
-                k1, k2, d_, vl, vi, mode, machines, dyn_model_exp,
-                drag_coeff, m_veh, float(const_gg[0]), float(const_gg[1]),
-                kernels=kernels)
-            return out.reshape(B, r, T + 1)
-
-        def _brake_row(k_abs, e, v0):
-            return (k_abs[:, :-1], k_abs[:, :-1], e[:, :-1], row_inf, v0)
-
-        def _fwd_row(k_abs, e, v_bound, v0):
-            return (k_abs[:, :-1], k_abs[:, :-1], e[:, :-1], v_bound[:, 1:],
-                    torch.minimum(v_bound[:, 0], v0))
-
-        def _bwd_row(k_abs, e, v_f):
-            return (flip(k_abs[:, 1:]), flip(k_abs[:, :-1]), flip(e[:, :-1]),
-                    flip(v_f[:, :-1]), v_f[:, -1])
-    else:
-        # per-row gg streams (kernel 5)
-        def _lvl(rows, modes):
-            per_step, vi, mode, r, T = _stack(rows, modes)
-            out = velops.stacked_vel_scan_auto(
-                *per_step, vi, mode, machines, dyn_model_exp, drag_coeff,
-                m_veh, kernels=kernels)
-            return out.reshape(B, r, T + 1)
-
-        g0 = gg[:-1, 0].expand(B, P - 1)
-        g1 = gg[:-1, 1].expand(B, P - 1)
-        g0r = flip(gg[1:, 0]).expand(B, P - 1)
-        g1r = flip(gg[1:, 1]).expand(B, P - 1)
-        g0f = flip(gg[:-1, 0]).expand(B, P - 1)
-        g1f = flip(gg[:-1, 1]).expand(B, P - 1)
-
-        def _brake_row(k_abs, e, v0):
-            return (k_abs[:, :-1], g0, g1, k_abs[:, :-1], g0, g1, e[:, :-1],
-                    row_inf, v0)
-
-        def _fwd_row(k_abs, e, v_bound, v0):
-            return (k_abs[:, :-1], g0, g1, k_abs[:, :-1], g0, g1, e[:, :-1],
-                    v_bound[:, 1:], torch.minimum(v_bound[:, 0], v0))
-
-        def _bwd_row(k_abs, e, v_f):
-            return (flip(k_abs[:, 1:]), g0r, g1r, flip(k_abs[:, :-1]), g0f,
-                    g1f, flip(e[:, :-1]), flip(v_f[:, :-1]), v_f[:, -1])
-
     c_len = c_len.long()
-    # ---- level 0: brake prefix per slot (none under sqp) -------------------
-    if sqp:
-        pref_idx = c_len[:, None].expand(B, 4)
-        vel_start = vel_plan[:, None].expand(B, 4)
-        v_decel = torch.zeros_like(el)
-    else:
-        prefix_active = vel_plan > (vel_max + 0.1)                # (B,)
-        el_pref = torch.where(idx < c_len[:, None, None], 0.0, el)
-        v_decel = _lvl([_brake_row(kabs[:, s], el_pref[:, s], vel_plan)
-                        for s in range(4)], [velops.MODE_BRAKE] * 4)
-        reach = v_decel <= vel_max
-        first_reach = torch.argmax(reach.to(torch.int32), dim=2)
-        first_reach = torch.where(torch.any(reach, dim=2), first_reach, P - 1)
-        pref_idx = torch.where(prefix_active[:, None],
-                               torch.maximum(first_reach, c_len[:, None]),
-                               c_len[:, None])                    # (B, 4)
-        vel_start = torch.where(prefix_active[:, None],
-                                _at(v_decel, pref_idx), vel_plan[:, None])
-
-    masked = idx < pref_idx[..., None]
-    kabs_m = torch.abs(torch.where(masked, 0.0, kappa))
-    el_m = torch.where(masked, 0.0, el)
     if s4 is None:
         s4 = _cumsum0(el, kernels=kernels)                        # (B, 4, P)
-
-    # ---- normal bounds per slot --------------------------------------------
-    spl_len = _at(s4, torch.clamp(n_valids - 1, 0, P - 1))        # (B, 4)
-    cum = s4[..., 1:]                     # the sums of el[..., :-1]
-    below = cum < (spl_len[..., None] - 5.0)
-    v_idx_red = torch.argmin(below.to(torch.int32), dim=-1) + 1
-    v_idx_red = torch.where((v_idx_red == 1) & (n_valids > 1), n_valids,
-                            v_idx_red)
-    v_idx = torch.where(red_len, v_idx_red, n_valids)             # (B, 4)
-
-    qp_status = torch.zeros((B, 4), dtype=torch.int32, device=dev)
-    vx_sqp = torch.zeros_like(el)
+    v_idx = _v_idx(s4, n_valids, red_len)                         # (B, 4)
+    is_follow = torch.arange(4, device=dev) == Fs
+    gg_b = gg.expand(B, P, 2)
     if sqp:
-        # ---- the 4 normal-branch QPs and the follow QP of every scenario
-        # over the fixed m-point window, one batched solve --------------------
-        m = P if sqp_m is None else min(sqp_m, P)
-        with cuda_graph.span("gltpl.sqp_window"):
-            x0v = (torch.full_like(el, 20.0) if sqp_x0 is None
-                   else sqp_x0)[..., :m]                          # (B, 4, m)
-            cols4 = torch.cat([kappa[..., None], el[..., None],
-                               gg.expand(B, 4, P, 2)], dim=-1)    # (B,4,P,4)
-            win_n = _sqp_m_window(cols4, c_len[:, None], v_idx - pref_idx, m)
-            win_f = _sqp_m_window(cols4[:, Fs], c_len,
-                                  n_valids[:, Fs] - pref_idx[:, Fs], m)
-            vmax_f = _sqp_follow_vmax(m, vel_max, v_obj, obj_dist, safety_d,
-                                      veh_length, gg[0, 0], sqp_step)  # (B, m)
-            win5 = torch.cat([win_n, win_f[:, None]], dim=1)
-            gg5, v_end5 = _sqp_tire_end(win5, tire_end_idx, tire_end_mps2,
-                                        veh_turn)
-            vmax5 = torch.cat([vel_max.expand(B, 4, m), vmax_f[:, None]],
-                              dim=1)
-            vs5 = torch.cat([vel_start, vel_start[:, Fs:Fs + 1]], dim=1)
-            x05 = torch.cat([x0v, x0v[:, Fs:Fs + 1]], dim=1)
-        vx5, res5 = _sqp_profiles(win5, gg5, v_end5, vmax5, vs5, x05,
-                                  machines, drag_coeff, m_veh, kernels)
-        with cuda_graph.span("gltpl.sqp_handoff"):
-            st5 = qp.qp_solver_status(res5)
-            st_n, st_f = st5[:, :4], st5[:, 4]
-            # infeasible solves zero; overtake slots also inaccurate ones
-            is_ot = torch.arange(4, device=dev) >= 2
-            zero_n = (st_n == -3) | (is_ot & (st_n == 2))
-            vx_qn = torch.where(zero_n[..., None], 0.0, vx5[:, :4])
-            vx_qf = torch.where((st_f == -3)[:, None], 0.0, vx5[:, 4])
-            vx_normal = _place_back(vx_qn, c_len[:, None], P)     # (B, 4, P)
-            vx_follow = _place_back(vx_qf, c_len, P)              # (B, P)
-            follow_bound = torch.abs(_at(vx_follow, pref_idx[:, Fs])
-                                     - vel_start[:, Fs]) < v_max_offset
-            too_close = torch.zeros((B,), dtype=torch.bool, device=dev)
-            is_follow4 = torch.arange(4, device=dev) == Fs
-            qp_status = torch.where(is_follow4, st_f[:, None], st_n)
-            vx_sqp = _sqp_store(torch.where(is_follow4[:, None],
-                                            vx_qf[:, None], vx_qn), P)
+        out = _sqp_qps(
+            kappa, el, gg_b, n_valids, v_idx, c_len, vel_plan, vel_max,
+            v_max_offset, Fs, is_follow, torch.arange(4, device=dev) >= 2,
+            obj_dist, v_obj, safety_d, veh_length, sqp_x0, veh_turn,
+            tire_end_idx, tire_end_mps2, sqp_m, sqp_step, machines,
+            drag_coeff, m_veh, idx, kernels)
     else:
-        # ---- follow scalars (follow slot only) -----------------------------
-        control_d = ctrl_cp * safety_d + veh_length
-        safety_total = safety_d + veh_length
-        too_close = (obj_dist - safety_total) < 0.0
-        s_f = _cumsum0(el_m[:, Fs], kernels=kernels)             # (B, P)
-        s_stop = obj_dist - safety_total + opp_stop_dist
-        stop_idx = torch.clamp(torch.sum(s_f < s_stop[:, None], dim=-1), 0,
-                               P - 1)
-        opp_vel_at = _runout_velocity(
-            roll_vel, roll_cum,
-            opp_stop_dist - ((obj_dist - safety_total + opp_stop_dist)
-                             - (_at(s4[:, Fs], torch.clamp(n_valids[:, Fs] - 1,
-                                                           0, P - 1))
-                                - _at(s4[:, Fs], pref_idx[:, Fs]))))
-        v_end_f = torch.where(s_stop > s_f[:, -1], opp_vel_at, 0.0)
-        v_control = torch.minimum(torch.clamp(
-            velops.follow_control_vel(ctrl, obj_dist, control_d, v_obj,
-                                      vel_est, control_type), min=0.0),
-            vel_max)
-
-        v_end = torch.where(red_len, 0.0, v_end_rl)
-        tail = idx >= v_idx[..., None] - 1
-        el_n = torch.where(tail, 0.0, el_m)
-        v_lat = torch.sqrt(gg[:, 1] / torch.clamp(kabs_m, min=1e-9))
-        v0_n = torch.minimum(v_lat, vel_max)
-        v0_n = torch.where(tail, torch.minimum(v0_n, v_end[..., None]), v0_n)
-        v0_u = torch.minimum(v_lat[:, Fs], vel_max)
-
-        # ---- level 1: ego brake (F) + unconstrained fwd (F) + normal fwd x4
-        lvl1 = _lvl([_brake_row(kabs_m[:, Fs], el_m[:, Fs], vel_start[:, Fs]),
-                     _fwd_row(kabs_m[:, Fs], el_m[:, Fs], v0_u,
-                              vel_start[:, Fs])]
-                    + [_fwd_row(kabs_m[:, s], el_n[:, s], v0_n[:, s],
-                                vel_start[:, s]) for s in range(4)],
-                    [velops.MODE_BRAKE, velops.MODE_FWD]
-                    + [velops.MODE_FWD] * 4)
-        v_ego_brake = lvl1[:, 0]
-        vf_u = lvl1[:, 1]
-        vf_n = lvl1[:, 2:]
-        ego_stop_d = velops.stop_distance(v_ego_brake, el_m[:, Fs])
-
-        seg1_active = (vel_start[:, Fs] > v_control) & (stop_idx >= 2)
-        below_c = v_ego_brake <= v_control[:, None]
-        idx_c_raw = torch.argmax(below_c.to(torch.int32), dim=-1)
-        idx_c_raw = torch.where(torch.any(below_c, dim=-1), idx_c_raw,
-                                stop_idx)
-        idx_c = torch.where(seg1_active,
-                            torch.minimum(torch.where(idx_c_raw == 0,
-                                                      stop_idx, idx_c_raw),
-                                          stop_idx),
-                            torch.zeros_like(stop_idx))
-        vx_control_start = torch.where(seg1_active, _at(v_ego_brake, idx_c),
-                                       vel_start[:, Fs])
-
-        el_seg2 = torch.where(idx < stop_idx[:, None], el_m[:, Fs], 0.0)
-        el_seg2 = torch.where(idx < idx_c[:, None], 0.0, el_seg2)
-        v0_s = torch.minimum(v_lat[:, Fs], v_control[:, None])
-        v0_s = torch.where(idx >= stop_idx[:, None],
-                           torch.minimum(v0_s, v_end_f[:, None]), v0_s)
-
-        # ---- level 2: seg2 fwd (F) + unconstrained bwd (F) + normal bwd x4
-        lvl2 = _lvl([_fwd_row(kabs_m[:, Fs], el_seg2, v0_s,
-                              torch.minimum(vx_control_start, v_control)),
-                     _bwd_row(kabs_m[:, Fs], el_m[:, Fs], vf_u)]
-                    + [_bwd_row(kabs_m[:, s], el_n[:, s], vf_n[:, s])
-                       for s in range(4)],
-                    [velops.MODE_FWD, velops.MODE_BWD]
-                    + [velops.MODE_BWD] * 4)
-        vf_s = lvl2[:, 0]
-        vx_compl = flip(lvl2[:, 1])
-        vx_normal = flip(lvl2[:, 2:])                             # (B, 4, P)
-
-        # ---- level 3: seg2 bwd ---------------------------------------------
-        v_seg2 = flip(_lvl([_bwd_row(kabs_m[:, Fs], el_seg2, vf_s)],
-                           [velops.MODE_BWD])[:, 0])
-
-        # ---- follow assembly -----------------------------------------------
-        follow_bound = torch.abs(_at(v_seg2, idx_c) - vx_control_start) \
-            <= 1.0
-        follow_bound &= ~((~seg1_active) & (stop_idx < 2))
-        vx_follow = torch.where(idx < idx_c[:, None], v_ego_brake, v_seg2)
-        vx_follow = torch.where(idx > stop_idx[:, None], 0.0, vx_follow)
-        follow_bound &= torch.abs(vx_follow[:, 0] - vel_start[:, Fs]) <= 1.0
-        cannot_hold = ego_stop_d >= s_stop
-        vx_follow = torch.where(cannot_hold[:, None], v_ego_brake, vx_follow)
-        follow_bound = torch.where(cannot_hold, True, follow_bound)
-        vx_follow = torch.minimum(vx_follow, vx_compl)
-
-    # ---- normal assembly per slot ------------------------------------------
-    vx_normal = torch.where(idx >= v_idx[..., None], 0.0, vx_normal)
-    degenerate = (v_idx - pref_idx) <= 1                          # (B, 4)
-    vx_normal = torch.where(degenerate[..., None], 0.0, vx_normal)
-    at_pref = _at(vx_normal, pref_idx)
-    normal_bound = torch.abs(at_pref - vel_start) < v_max_offset
-    normal_bound = torch.where(degenerate, False, normal_bound)
+        _, v_control = _follow_control(ctrl_cp, ctrl_kd, ctrl_kp, ctrl_tanw,
+                                       safety_d, veh_length, obj_dist, v_obj,
+                                       vel_est, vel_max, control_type)
+        streams = None if const_gg is not None else gg_b
+        out = _fb_profiles(
+            kappa, el, s4, n_valids, v_idx, red_len, v_end_rl, c_len,
+            vel_plan, vel_max, gg[:, 1], streams, streams, Fs, v_control,
+            obj_dist, safety_d, veh_length, opp_stop_dist, roll_vel, roll_cum,
+            idx, _scan(const_gg, machines, dyn_model_exp, drag_coeff, m_veh,
+                       kernels), kernels)
+    (pref_idx, vel_start, v_decel, masked, vx_normal, qp_status, vx_sqp,
+     vx_follow, follow_bound, too_close) = out
+    vx_normal, normal_bound = _normal_bound(vx_normal, v_idx, pref_idx,
+                                            vel_start, v_max_offset, idx)
 
     # ---- select per slot + prefix + smoothing + acceleration ---------------
-    is_follow = torch.arange(4, device=dev) == Fs
     vx_follow_sel = torch.where(red_len[:, Fs, None],
                                 torch.minimum(vx_follow, vx_normal[:, Fs]),
                                 vx_follow)
@@ -506,20 +554,10 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
     vx_full = torch.where(masked, v_decel, vx_branch)
     vx_full = torch.where(idx < c_len[:, None, None], vel_course[:, None, :],
                           vx_full)
-    if filt_window > 1 and not sqp:
-        vx_full = velops.conv_filt(vx_full, filt_window)
-    ax = (vx_full[..., 1:] ** 2 - vx_full[..., :-1] ** 2) \
-        / torch.clamp(2.0 * el[..., :-1], min=1e-9)
-    ax = torch.where(el[..., :-1] > 1e-9, ax, 0.0)
-    stationary = torch.isclose(vx_full[..., :-1], torch.zeros_like(ax)) \
-        & torch.isclose(ax, torch.zeros_like(ax)) \
-        & (idx[:-1] < n_valids[..., None] - 1)
-    ax = torch.where(stationary, -5.0, ax)
-    ax_f = torch.cat([ax, torch.zeros_like(ax[..., :1])], dim=-1)
-    trajs = torch.stack([s4, paths[..., 0], paths[..., 1], paths[..., 2],
-                         paths[..., 3], vx_full, ax_f], dim=-1)
-    return dict(trajs=trajs, vel_bound=vel_bound, too_close=too_close,
-                vx_sqp=vx_sqp, qp_status=qp_status)
+    return dict(trajs=_profile(paths, s4, vx_full, n_valids[..., None], idx,
+                               1 if sqp else filt_window),
+                vel_bound=vel_bound, too_close=too_close, vx_sqp=vx_sqp,
+                qp_status=qp_status)
 
 
 def emergency_kernel(traj, gg, kernels: bool = True):
@@ -555,25 +593,20 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
     Shared by the tick: ``vel_course`` (P,) and ``c_len`` (the committed
     delay-compensation course), ``roll_vel``/``roll_cum`` (F_CAP,) and the
     scalars, as 0-dim float32 tensors (``dyn_model_exp``, ``drag_coeff``,
-    ``m_veh`` as floats).
+    ``m_veh`` as floats).  Each action is one path with its own follow
+    profile; ``is_follow`` picks the follow branch, merged with the
+    normal one on ``red_len``.
 
-    ``fb``: the eight recurrences of each action (brake prefix; follow's
-    ego brake, segment-2 forward and backward and the unconstrained
-    forward and backward; the normal forward and backward) run as four
-    dependency levels of one stacked scan each, with per-step gg streams:
-    kernel 5 on the card.
+    ``fb`` (:func:`_fb_profiles`, eight recurrences an action): per-step
+    gg streams scaled by ``gg_scale``, the brake prefix's by
+    ``old_gg_scale`` (kernel 5 on the card).
 
-    ``sqp`` (the reference's VpSQP): no brake prefix; per action a normal
-    QP over the ``v_idx``-cut slice and a follow QP with the pointwise
-    opponent cap, each over the fixed ``sqp_m``-point window from the cut
-    with the unscaled gg, the tire-end gg over the last ``tire_end_idx``
-    points and the conservative terminal velocity; the 2R QPs as one
-    batched solve (one ADMM kernel launch on the card); the status
-    hand-off (infeasible solves zeroed, overtakes — ``is_overtake`` (R,)
-    — also on inaccurate ones); ``too_close`` never raised; no smoothing.
-    ``sqp_x0`` (R, P) warm-start profiles (None: 20 m/s); ``veh_turn``
-    0-dim tensors, ``tire_end_mps2`` 0-dim or (R,); ``sqp_step`` the
-    uniform spline step of the follow cap.
+    ``sqp`` (the reference's VpSQP, :func:`_sqp_qps`): a normal and a
+    follow QP per action with the unscaled gg, the 2R QPs as one batched
+    solve; overtakes — ``is_overtake`` (R,) — also zeroed on inaccurate
+    solves; no smoothing.  ``sqp_x0`` (R, P) warm-start profiles (None:
+    20 m/s); ``veh_turn`` 0-dim tensors, ``tire_end_mps2`` 0-dim or (R,);
+    ``sqp_step`` the uniform spline step of the follow cap.
 
     :returns: dict(traj (R, P, 7) [s x y psi kappa vx ax], vel_bound (R,),
         too_close (R,), follow_v_control (R,), follow_control_d,
@@ -581,208 +614,44 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
         qp_status (R,) int32 — both zero for ``fb``)
     """
     R, P, _ = path.shape
-    dev = path.device
-    idx = torch.arange(P, device=dev)
-    kappa = path[..., 3]
-    el = path[..., 4]
-    s = _cumsum0(el, kernels=kernels)
-    gg_s = gg * gg_scale
-    row_inf = torch.full((R, P - 1), math.inf, dtype=path.dtype, device=dev)
-    kabs = torch.abs(kappa)
-    ctrl = {"c_p": ctrl_cp, "k_d": ctrl_kd, "k_p": ctrl_kp, "tan_w": ctrl_tanw}
-    flip = lambda x: torch.flip(x, dims=[-1])                 # noqa: E731
-    vel_plan_r = vel_plan.expand(R)
+    idx = torch.arange(P, device=path.device)
+    kappa = path[:, None, :, 3]                                   # (R, 1, P)
+    el = path[:, None, :, 4]
+    s = _cumsum0(path[..., 4], kernels=kernels)
     sqp = vp_backend == "sqp"
     if not sqp and vp_backend != "fb":
         raise ValueError(f"unknown velocity backend {vp_backend!r}")
-
-    def _lvl(rows, modes):
-        cols = list(zip(*rows))
-        n = len(rows)
-        per_step = [torch.stack(c, dim=1).reshape(R * n, P - 1)
-                    for c in cols[:-1]]
-        v_init = torch.stack(cols[-1], dim=1).reshape(R * n)
-        mode = cuda_graph.const_vector(modes, torch.int32, dev).repeat(R)
-        out = velops.stacked_vel_scan_auto(
-            *per_step[:8], v_init, mode, machines, dyn_model_exp, drag_coeff,
-            m_veh, kernels=kernels)
-        return out.reshape(R, n, P)
-
-    def _brake_row(k_abs, g, e, v0):
-        z = k_abs[:, :-1]
-        return (z, g[:, :-1, 0], g[:, :-1, 1], z, g[:, :-1, 0], g[:, :-1, 1],
-                e[:, :-1], row_inf, v0)
-
-    def _fwd_row(k_abs, g, e, v_bound, v0):
-        z = k_abs[:, :-1]
-        return (z, g[:, :-1, 0], g[:, :-1, 1], z, g[:, :-1, 0], g[:, :-1, 1],
-                e[:, :-1], v_bound[:, 1:], torch.minimum(v_bound[:, 0], v0))
-
-    def _bwd_row(k_abs, g, e, v_f):
-        return (flip(k_abs[:, 1:]), flip(g[:, 1:, 0]), flip(g[:, 1:, 1]),
-                flip(k_abs[:, :-1]), flip(g[:, :-1, 0]), flip(g[:, :-1, 1]),
-                flip(e[:, :-1]), flip(v_f[:, :-1]), v_f[:, -1])
-
     vel_idx = c_len.long()
-    # ---- follow-mode control law -------------------------------------------
-    control_d = ctrl_cp * safety_d + veh_length
-    safety_total = safety_d + veh_length
-    v_control = torch.minimum(torch.clamp(
-        velops.follow_control_vel(ctrl, obj_dist, control_d, v_obj, vel_est,
-                                  control_type), min=0.0), vel_max)
-
-    # ---- normal-branch end -------------------------------------------------
-    spl_len = _at(s, torch.clamp(n_valid - 1, 0, P - 1))
-    cum = s[:, 1:]                        # the sums of el[:, :-1]
-    below = cum < (spl_len[:, None] - 5.0)
-    v_idx_red = torch.argmin(below.to(torch.int32), dim=-1) + 1
-    v_idx_red = torch.where((v_idx_red == 1) & (n_valid > 1), n_valid,
-                            v_idx_red)
-    v_idx = torch.where(red_len, v_idx_red, n_valid)
-
-    qp_status = torch.zeros((R,), dtype=torch.int32, device=dev)
-    vx_sqp = torch.zeros_like(el)
+    control_d, v_control = _follow_control(
+        ctrl_cp, ctrl_kd, ctrl_kp, ctrl_tanw, safety_d, veh_length, obj_dist,
+        v_obj, vel_est, vel_max, control_type)
+    v_idx = _v_idx(s, n_valid, red_len)
     if sqp:
-        # ---- the profile starts at the delay-compensation cut from vel_plan
-        pref_idx = vel_idx.expand(R)
-        vel_start = vel_plan_r
-        v_decel = torch.zeros_like(el)
-        masked = idx < pref_idx[:, None]
-        m = P if sqp_m is None else min(sqp_m, P)
-        with cuda_graph.span("gltpl.sqp_window"):
-            x0v = (torch.full_like(el, 20.0) if sqp_x0 is None
-                   else sqp_x0)[:, :m]
-            # unscaled gg: the reference applies gg_scale through fb only
-            cols = torch.stack([kappa, el, gg[..., 0], gg[..., 1]], dim=-1)
-            win_n = _sqp_m_window(cols, pref_idx, v_idx - pref_idx, m)
-            win_f = _sqp_m_window(cols, pref_idx, n_valid - pref_idx, m)
-            vmax_f = _sqp_follow_vmax(m, vel_max, v_obj, obj_dist, safety_d,
-                                      veh_length, gg[:, 0, 0], sqp_step)
-            win2 = torch.stack([win_n, win_f])
-            gg2, v_end2 = _sqp_tire_end(win2, tire_end_idx, tire_end_mps2,
-                                        veh_turn)
-            vmax2 = torch.stack([vel_max.expand(R, m), vmax_f])
-            x02 = torch.stack([x0v, x0v])
-        vx2, res2 = _sqp_profiles(win2, gg2, v_end2, vmax2,
-                                  vel_start.expand(2, R), x02, machines,
-                                  drag_coeff, m_veh, kernels)
-        with cuda_graph.span("gltpl.sqp_handoff"):
-            st2 = qp.qp_solver_status(res2)
-            st_n, st_f = st2[0], st2[1]
-            ot = (torch.zeros_like(is_follow) if is_overtake is None
-                  else is_overtake)
-            zero_n = (st_n == -3) | (ot & (st_n == 2))
-            vx_qn = torch.where(zero_n[:, None], 0.0, vx2[0])
-            vx_qf = torch.where((st_f == -3)[:, None], 0.0, vx2[1])
-            vx_normal = _place_back(vx_qn, pref_idx, P)
-            vx_follow = _place_back(vx_qf, pref_idx, P)
-            too_close = torch.zeros((R,), dtype=torch.bool, device=dev)
-            follow_bound = torch.abs(_at(vx_follow, pref_idx) - vel_start) \
-                < v_max_offset
-            qp_status = torch.where(is_follow, st_f, st_n)
-            vx_sqp = _sqp_store(torch.where(is_follow[:, None], vx_qf, vx_qn),
-                                P)
+        out = _sqp_qps(
+            kappa, el, gg, n_valid[:, None], v_idx[:, None],
+            vel_idx.expand(R), vel_plan.expand(R), vel_max, v_max_offset, 0,
+            is_follow[:, None],
+            False if is_overtake is None else is_overtake[:, None], obj_dist,
+            v_obj, safety_d, veh_length,
+            None if sqp_x0 is None else sqp_x0[:, None],
+            veh_turn, tire_end_idx, tire_end_mps2, sqp_m, sqp_step, machines,
+            drag_coeff, m_veh, idx, kernels)
     else:
-        # ---- level 0: brake prefix to a lowered v_max ----------------------
-        prefix_active = vel_plan > (vel_max + 0.1)
-        el_pref = torch.where(idx < vel_idx, 0.0, el)
-        gg_old = gg * old_gg_scale
-        v_decel = _lvl([_brake_row(kabs, gg_old, el_pref, vel_plan_r)],
-                       [velops.MODE_BRAKE])[:, 0]                 # (R, P)
-        reach = v_decel <= vel_max
-        first_reach = torch.argmax(reach.to(torch.int32), dim=-1)
-        first_reach = torch.where(torch.any(reach, dim=-1), first_reach,
-                                  P - 1)
-        pref_idx = torch.where(prefix_active,
-                               torch.maximum(first_reach, vel_idx), vel_idx)
-        vel_start = torch.where(prefix_active, _at(v_decel, pref_idx),
-                                vel_plan)
-
-        masked = idx < pref_idx[:, None]
-        kabs_m = torch.abs(torch.where(masked, 0.0, kappa))
-        el_m = torch.where(masked, 0.0, el)
-
-        # ---- follow-mode scalars -------------------------------------------
-        too_close = (obj_dist - safety_total) < 0.0
-        s_f = _cumsum0(el_m, kernels=kernels)
-        s_stop = obj_dist - safety_total + opp_stop_dist
-        stop_idx = torch.clamp(torch.sum(s_f < s_stop[:, None], dim=-1), 0,
-                               P - 1)
-        opp_vel_at = _runout_velocity(
-            roll_vel.expand(R, -1), roll_cum.expand(R, -1),
-            opp_stop_dist - ((obj_dist - safety_total + opp_stop_dist)
-                             - (_at(s, torch.clamp(n_valid - 1, 0, P - 1))
-                                - _at(s, pref_idx))))
-        v_end_f = torch.where(s_stop > s_f[:, -1], opp_vel_at, 0.0)
-
-        # ---- normal-branch bounds ------------------------------------------
-        v_end = torch.where(red_len, 0.0, v_end_rl)
-        tail = idx >= v_idx[:, None] - 1
-        el_n = torch.where(tail, 0.0, el_m)
-        v_lat = torch.sqrt(gg_s[..., 1] / torch.clamp(kabs_m, min=1e-9))
-        v0_u = torch.minimum(v_lat, vel_max)
-        v0_n = torch.where(tail, torch.minimum(v0_u, v_end[:, None]), v0_u)
-
-        # ---- level 1: ego brake + unconstrained fwd + normal fwd -----------
-        lvl1 = _lvl([_brake_row(kabs_m, gg_s, el_m, vel_start),
-                     _fwd_row(kabs_m, gg_s, el_m, v0_u, vel_start),
-                     _fwd_row(kabs_m, gg_s, el_n, v0_n, vel_start)],
-                    [velops.MODE_BRAKE, velops.MODE_FWD, velops.MODE_FWD])
-        v_ego_brake, vf_u, vf_n = lvl1[:, 0], lvl1[:, 1], lvl1[:, 2]
-        ego_stop_d = velops.stop_distance(v_ego_brake, el_m)
-
-        # follow segment-1 hand-off
-        seg1_active = (vel_start > v_control) & (stop_idx >= 2)
-        below_c = v_ego_brake <= v_control[:, None]
-        idx_c_raw = torch.argmax(below_c.to(torch.int32), dim=-1)
-        idx_c_raw = torch.where(torch.any(below_c, dim=-1), idx_c_raw,
-                                stop_idx)
-        idx_c = torch.where(seg1_active,
-                            torch.minimum(torch.where(idx_c_raw == 0,
-                                                      stop_idx, idx_c_raw),
-                                          stop_idx),
-                            torch.zeros_like(stop_idx))
-        vx_control_start = torch.where(seg1_active, _at(v_ego_brake, idx_c),
-                                       vel_start)
-        el_seg2 = torch.where(idx < stop_idx[:, None], el_m, 0.0)
-        el_seg2 = torch.where(idx < idx_c[:, None], 0.0, el_seg2)
-        v0_s = torch.minimum(v_lat, v_control[:, None])
-        v0_s = torch.where(idx >= stop_idx[:, None],
-                           torch.minimum(v0_s, v_end_f[:, None]), v0_s)
-
-        # ---- level 2: seg2 fwd + unconstrained bwd + normal bwd ------------
-        lvl2 = _lvl([_fwd_row(kabs_m, gg_s, el_seg2, v0_s,
-                              torch.minimum(vx_control_start, v_control)),
-                     _bwd_row(kabs_m, gg_s, el_m, vf_u),
-                     _bwd_row(kabs_m, gg_s, el_n, vf_n)],
-                    [velops.MODE_FWD, velops.MODE_BWD, velops.MODE_BWD])
-        vf_s = lvl2[:, 0]
-        vx_compl = flip(lvl2[:, 1])
-        vx_normal = flip(lvl2[:, 2])
-
-        # ---- level 3: seg2 bwd ---------------------------------------------
-        v_seg2 = flip(_lvl([_bwd_row(kabs_m, gg_s, el_seg2, vf_s)],
-                           [velops.MODE_BWD])[:, 0])
-
-        # ---- follow assembly -----------------------------------------------
-        follow_bound = torch.abs(_at(v_seg2, idx_c) - vx_control_start) \
-            <= 1.0
-        follow_bound &= ~((~seg1_active) & (stop_idx < 2))
-        vx_follow = torch.where(idx < idx_c[:, None], v_ego_brake, v_seg2)
-        vx_follow = torch.where(idx > stop_idx[:, None], 0.0, vx_follow)
-        follow_bound &= torch.abs(vx_follow[:, 0] - vel_start) <= 1.0
-        cannot_hold = ego_stop_d >= s_stop
-        vx_follow = torch.where(cannot_hold[:, None], v_ego_brake, vx_follow)
-        follow_bound = torch.where(cannot_hold, True, follow_bound)
-        vx_follow = torch.minimum(vx_follow, vx_compl)
-
-    # ---- normal assembly ---------------------------------------------------
-    vx_normal = torch.where(idx >= v_idx[:, None], 0.0, vx_normal)
-    degenerate = (v_idx - pref_idx) <= 1
-    vx_normal = torch.where(degenerate[:, None], 0.0, vx_normal)
-    normal_bound = torch.abs(_at(vx_normal, pref_idx) - vel_start) \
-        < v_max_offset
-    normal_bound = torch.where(degenerate, False, normal_bound)
+        gg_s = gg * gg_scale
+        out = _fb_profiles(
+            kappa, el, s[:, None], n_valid[:, None], v_idx[:, None],
+            red_len[:, None], v_end_rl[:, None], vel_idx.expand(R),
+            vel_plan.expand(R), vel_max, gg_s[:, None, :, 1],
+            gg * old_gg_scale, gg_s, 0, v_control, obj_dist, safety_d,
+            veh_length, opp_stop_dist, roll_vel.expand(R, -1),
+            roll_cum.expand(R, -1), idx,
+            _scan(None, machines, dyn_model_exp, drag_coeff, m_veh, kernels),
+            kernels)
+    (pref_idx, vel_start, v_decel, masked, vx_normal, qp_status,
+     vx_sqp) = (x[:, 0] for x in out[:7])
+    vx_follow, follow_bound, too_close = out[7:]
+    vx_normal, normal_bound = _normal_bound(vx_normal, v_idx, pref_idx,
+                                            vel_start, v_max_offset, idx)
 
     # ---- select / merge, then the course, the prefix and the branch --------
     use_normal = ~is_follow
@@ -795,16 +664,9 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
     vx_full = torch.where(idx < vel_idx, vel_course,
                           torch.where(masked, v_decel, vx_branch))
     # the reference smooths the fb profiles only
-    vx_f = vx_full if sqp else velops.conv_filt(vx_full, filt_window)
-    ax = velops.calc_ax_profile(vx_f, el)
-    stationary = torch.isclose(vx_f[:, :-1], torch.zeros_like(ax)) \
-        & torch.isclose(ax, torch.zeros_like(ax)) \
-        & (idx[:-1] < n_valid[:, None] - 1)
-    ax = torch.where(stationary, -5.0, ax)
-    ax_f = torch.cat([ax, torch.zeros_like(ax[:, :1])], dim=-1)
-    traj = torch.stack([s, path[..., 0], path[..., 1], path[..., 2],
-                        path[..., 3], vx_f, ax_f], dim=-1)
-    return dict(traj=traj, vel_bound=vel_bound, too_close=too_close,
+    return dict(traj=_profile(path, s, vx_full, n_valid[:, None], idx,
+                              1 if sqp else filt_window),
+                vel_bound=vel_bound, too_close=too_close,
                 follow_v_control=v_control, follow_control_d=control_d,
                 vx_sqp=vx_sqp, qp_status=qp_status)
 
@@ -826,14 +688,8 @@ def brake_on_backup_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
         kappa[None], el_m[None], gg[None], vel_plan.reshape(1),
         dyn_model_exp, drag_coeff, m_veh, kernels=kernels)[0]
     vx_full = torch.where(idx < c_len, vel_course, vx)
-    ax = velops.calc_ax_profile(vx_full, el)
-    stationary = torch.isclose(vx_full[:-1], torch.zeros_like(ax)) \
-        & torch.isclose(ax, torch.zeros_like(ax)) & (idx[:-1] < n_valid - 1)
-    ax = torch.where(stationary, -5.0, ax)
-    ax_f = torch.cat([ax, torch.zeros_like(ax[:1])])
-    s = _cumsum0(el, kernels=kernels)
-    return torch.stack([s, path[:, 0], path[:, 1], path[:, 2], path[:, 3],
-                        vx_full, ax_f], dim=-1)
+    return _profile(path, _cumsum0(el, kernels=kernels), vx_full, n_valid,
+                    idx)
 
 
 def brake_em_sqp_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
@@ -851,10 +707,9 @@ def brake_em_sqp_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
     P = path.shape[0]
     dev = path.device
     idx = torch.arange(P, device=dev)
-    kappa = path[:, 3]
     el = path[:, 4]
     m = P if sqp_m is None else min(sqp_m, P)
-    cols = torch.stack([kappa, el, gg[:, 0], gg[:, 1]], dim=-1)
+    cols = torch.stack([path[:, 3], el, gg[:, 0], gg[:, 1]], dim=-1)
     c_len = cuda_graph.as_tensor(c_len, device=dev).long()
     win = _sqp_m_window(cols, c_len, n_valid - c_len, m)
     v_end = torch.sqrt(tire_end_mps2 * veh_turn)
@@ -868,11 +723,5 @@ def brake_em_sqp_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
         pin_idx=0, x0_v=x0, kernels=kernels)
     vx_full = _place_back(vx_m, c_len, P)
     vx_full = torch.where(idx < c_len, vel_course, vx_full)
-    ax = velops.calc_ax_profile(vx_full, el)
-    stationary = torch.isclose(vx_full[:-1], torch.zeros_like(ax)) \
-        & torch.isclose(ax, torch.zeros_like(ax)) & (idx[:-1] < n_valid - 1)
-    ax = torch.where(stationary, -5.0, ax)
-    ax_f = torch.cat([ax, torch.zeros_like(ax[:1])])
-    s = _cumsum0(el, kernels=kernels)
-    return torch.stack([s, path[:, 0], path[:, 1], path[:, 2], path[:, 3],
-                        vx_full, ax_f], dim=-1)
+    return _profile(path, _cumsum0(el, kernels=kernels), vx_full, n_valid,
+                    idx)

@@ -159,7 +159,8 @@ def test_longest_row_is_the_kernel_s():
     src = (cb.CSRC / "prefix_sum.cu").read_text()
     assert f"constexpr int MAX_N = {cp.MAX_N};" in src
     assert "prefix_sum" in cb.SOURCES
-    assert cb.KERNEL_WRAPPERS["prefix_sum"] == "cuda_prefix.blocked_cumsum"
+    assert cb.KERNEL_WRAPPERS["prefix_sum"].wrapper == \
+        "cuda_prefix.blocked_cumsum"
 
 
 # ---- the fleet tick's calls -------------------------------------------------

@@ -317,6 +317,46 @@ def test_velocity_stage_scenario_matches_jax(oval_drive, backend):
         assert torch.equal(cgg["trajs"], out["trajs"])
 
 
+@pytest.mark.parametrize("b", [0, 1])
+def test_stage_and_facade_kernel_agree(oval_drive, b):
+    """The fleet's fb stage (per-row gg streams) and the facade's
+    ``velocity_kernel`` on one recorded scenario's four slots as four
+    actions (the follow slot the one follow action, unit gg scales, no
+    smoothing) give the same profiles, bounds and ``too_close`` bit for
+    bit."""
+    lat = carry(oval_drive["lat"])
+    paths, n_valids, vc, _, t_opp = _stage_inputs(oval_drive, lat)
+    B, _, P, _ = paths.shape
+    gg = torch.from_numpy(np.tile(np.array([[9.0, 8.0]], np.float32),
+                                  (P, 1)))
+    red = torch.tensor([[False, False, True, False],
+                        [False, True, False, False]])
+    v_end_rl = torch.tensor([[30.0, 28.0, 25.0, 30.0],
+                             [26.0, 30.0, 30.0, 22.0]])
+    vel_plan = torch.tensor([38.0, 24.0])
+    obj_dist = torch.tensor([70.0, 35.0])
+    ctrl = (_f32(4.7), _f32(1.25), _f32(0.025), _f32(0.2), _f32(15.0), 1.0,
+            0.85, 1000.0)
+    stage = tvp.velocity_stage_scenario(
+        torch.from_numpy(paths), torch.from_numpy(n_valids).long(), gg,
+        torch.from_numpy(vc), torch.full((B,), 3), vel_plan, vel_plan,
+        _f32(45.0), torch.from_numpy(cl.MACHINES), _f32(0.1), v_end_rl, red,
+        obj_dist, torch.full((B,), 9.0), _f32(30.0), t_opp[0], t_opp[1],
+        t_opp[3], *ctrl, const_gg=None, follow_slot=1)
+    R = 4
+    kern = tvp.velocity_kernel(
+        torch.from_numpy(paths[b]), torch.from_numpy(n_valids[b]).long(),
+        gg.expand(R, P, 2), torch.from_numpy(vc[b]), torch.tensor(3),
+        vel_plan[b], vel_plan[b], _f32(45.0), _f32(1.0), _f32(1.0),
+        torch.from_numpy(cl.MACHINES), _f32(0.1),
+        torch.tensor([False, True, False, False]), red[b], v_end_rl[b],
+        obj_dist[b].expand(R), torch.full((R,), 9.0), _f32(30.0), t_opp[0][b],
+        t_opp[1][b], t_opp[3][b], *ctrl, filt_window=1)
+    assert torch.equal(kern["traj"], stage["trajs"][b])
+    assert torch.equal(kern["vel_bound"], stage["vel_bound"][b])
+    assert bool(kern["too_close"][1]) == bool(stage["too_close"][b])
+
+
 def test_brake_em_sqp_kernel_matches_jax(oval_drive):
     rec = oval_drive["rec"]
     path, n = _path_inputs(rec[15]["traj_set"]["left"][0])
