@@ -21,8 +21,13 @@ unclosed Monteblanco lattice with the port's builder, then:
    and signed-zero rows, a strided view, with and without the leading
    zero) and on the sqp fleet tick's recorded calls, their bits compared
    (the fb tick's three calls are among the timed ones, each in the
-   tick's own strided layout, and summed beside their bytes bound), and
-   the velocity scans'
+   tick's own strided layout, and summed beside their bytes bound), the
+   fb stage's glue kernels (``csrc/vel_stage.cu``: four level launches and
+   one epilogue a fb tick, timed among the fleet's and summed beside their
+   bytes bound) on every seeded case of ``testing_tools/velstage_cases``
+   under both backends, output memory spoiled, bits compared (the follow
+   path's stopping distance within its stated bound), and the velocity
+   scans'
    branch-free division and square root (``csrc/ieee_fast.cuh``) against
    the plain operators on every float32 (the root, dividends over a few
    divisors) and on random pairs (``testing_tools/ieee_fast_check``);
@@ -233,7 +238,10 @@ PEAK_F32_OPS_S = 67e12
 # cycle, 132 SMs x 128 lanes x 1.98 GHz
 PEAK_F32_NOFMA_OPS_S = 132 * 128 * 1.98e9
 FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan",
-         "assemble", "prefix_sum")
+         "assemble", "prefix_sum", "vel_stage_level", "vel_stage_epilogue")
+# the fb stage's glue kernels, which a smoothed profile (filt_window > 1)
+# does not take
+GLUE = ("vel_stage_level", "vel_stage_epilogue")
 # every kernel as (name, wrapper, source, JAX site replaced) from the
 # package's registry, the fleet tick's first (the next in the dense-window
 # search and the SQP backend)
@@ -378,6 +386,14 @@ def _cost_prefix(args, kw, out):
     return rows * n * 4 + _nbytes(out), rows * adds
 
 
+def _cost_velstage(name, args, kw, out):
+    """``testing_tools/velstage_cases.work``: bytes read and written once,
+    operations a written element."""
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        velstage_cases)
+    return velstage_cases.work(name, args, kw, out)
+
+
 def _bits(x):
     return x.contiguous().view(torch.int32)
 
@@ -408,6 +424,8 @@ def _as_tuple(out):
 def _call_shape(name, a):
     """The shape printed for a recorded call: its first input's (the node
     chains' for an assembly)."""
+    if name == "vel_stage_level":
+        return f"level {a[0]}, " + "x".join(str(d) for d in a[1].shape)
     return "x".join(str(d) for d in a[2 if name == "assemble" else 0].shape)
 
 
@@ -477,6 +495,8 @@ def _cost(name, a, kw, out):
         return _cost_assemble(a, out)
     if name == "prefix_sum":
         return _cost_prefix(a, kw, out)
+    if name in GLUE:
+        return _cost_velstage(name, a, kw, out)
     return _cost_vel(a, out, name == "vel_scan_cgg")
 
 
@@ -498,11 +518,23 @@ def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
     ko = kern(*a, **kw)
     torch.cuda.synchronize()
     ko_t = _as_tuple(ko)
-    err = max(float((x.double() - y.double()).abs().max())
-              for x, y in zip(ko_t, po_t))
+    ego = None
+    if name in GLUE:
+        from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+            velstage_cases)
+        ok, what, ego = velstage_cases.compare(name, a, kw, ko_t, po_t)
+        _check(ok, f"{name} {where}: {what}")
+    # the glue's stopping distance, held to its bound, is printed apart
+    err = max((float((x.double() - y.double()).abs().nan_to_num(0.0).max())
+               for i, (x, y) in enumerate(zip(ko_t, po_t))
+               if x.numel() and not (ego and i == velstage_cases.EGO)),
+              default=0.0)
+    if ego:
+        print(f"kernel {name} {where}: ego_stop_d max|kernel-plain|="
+              f"{ego[0]:.3g} m, {100 * ego[1]:.3g} % of its bound")
     for x, y in zip(ko_t, po_t):
-        _check(x.shape == y.shape and torch.equal(x, y)
-               and (name != "prefix_sum" or _same_bits(x, y)),
+        _check(name in GLUE or (x.shape == y.shape and torch.equal(x, y)
+               and (name != "prefix_sum" or _same_bits(x, y))),
                f"{name} {where}: not bit-equal, max |kernel - plain| {err}")
     ms = _device_ms(lambda: kern(*a, **kw))
     wrapper_ms = _median_ms(lambda: kern(*a, **kw), 30)
@@ -513,6 +545,8 @@ def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
     shape = _call_shape(name, a)
     rows = (a[1].shape[0] if name == "backtrace" else
             a[2].shape[0] if name == "assemble" else
+            a[1].shape[0] * a[1].shape[1] if name == "vel_stage_level" else
+            a[0].shape[0] * a[0].shape[1] if name == "vel_stage_epilogue" else
             a[0].numel() // a[0].shape[-1] if name == "prefix_sum" else
             a[0].shape[0])
     print(f"kernel {name} {where} {rows} rows [{shape}]: "
@@ -690,6 +724,46 @@ def ragged_assemble(lats):
                         n += 1
     torch.cuda.synchronize()
     return n
+
+
+def ragged_velstage():
+    """The fb stage's glue kernels against their plain versions on every
+    seeded case of ``testing_tools/velstage_cases`` under both backends:
+    each recorded level and epilogue call run again through the kernel,
+    output memory spoiled before, bits compared (``ego_stop_d`` within its
+    bound), each wrapper launched.  Returns the number of calls and the
+    largest ``ego_stop_d`` difference (m, share of its bound)."""
+    from graphbasedlocaltrajectoryplanner_torch.planner import velplan
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        velstage_cases as vc)
+    n, worst = 0, (0.0, 0.0)
+    for i, (N, P, fs) in enumerate(vc.CASES):
+        for backend in ("fb", "sqp"):
+            args, kw = vc.stage_case(N, P, fs, seed=1000 + i, device="cuda",
+                                     backend=backend)
+            _, calls = vc.recorded(
+                lambda: velplan.velocity_stage_scenario(*args, **kw))
+            _check(len(calls["vel_stage_epilogue"]) == 1
+                   and len(calls["vel_stage_level"]) == (
+                       4 if backend == "fb" else 0),
+                   f"velstage case {i} {backend}: calls "
+                   f"{ {k: len(v) for k, v in calls.items()} }")
+            for name, cs in calls.items():
+                kern = vc.kernel_of(name)
+                for a, k in cs:
+                    po = vc.plain_of(name)(*a, **k)
+                    for x in po:
+                        _spoil(x.shape, x.dtype)
+                    before = kern.launches
+                    ko = kern(*a, **k)
+                    torch.cuda.synchronize()
+                    ok, what, ego = vc.compare(name, a, k, ko, po)
+                    _check(ok and kern.launches == before + 1,
+                           f"ragged {name} case {vc.CASES[i]} {backend}: "
+                           f"{what or 'not launched'}")
+                    worst = max(worst, ego or worst)
+                    n += 1
+    return n, worst
 
 
 def ragged_prefix_sum(oval, scen):
@@ -1018,7 +1092,8 @@ def options_phase(oval, scen, card, wrapper, fb_prof):
     p_big = sc.default_p_max(oval) + 64
     fleet5 = set(FLEET)
     runs = [
-        ("filt_window=5", dict(filt_window=5), exact, "trajs", fleet5),
+        ("filt_window=5", dict(filt_window=5), exact, "trajs",
+         fleet5 - set(GLUE)),
         ("incl_emergency=False", dict(incl_emergency=False), exact,
          "trajs", fleet5),
         (f"p_max={p_big}", dict(p_max=p_big), exact, "trajs", fleet5),
@@ -1054,7 +1129,8 @@ def options_phase(oval, scen, card, wrapper, fb_prof):
     with rec:
         out_k, counts = _run_counted(wrapper, lambda: tick_k(scen))
     _check(all(counts[k] > 0 for k in ("hit_slab", "window_dp", "backtrace",
-                                       "vel_scan", "admm_vel")),
+                                       "vel_scan", "admm_vel",
+                                       "vel_stage_epilogue")),
            f"options sqp p_max={p_big}: a kernel was not launched: {counts}")
     out_p = tick_p(scen)
     torch.cuda.synchronize()
@@ -1709,12 +1785,15 @@ FLEET_NAMES = (("hit_slab", "hit_slab", 1), ("window_dp", "window_dp", 1),
                ("backtrace", "walk_kernel", 1),
                ("vel_scan", "vel_scan_kernel", 6),
                ("assemble", "assemble_kernel", 1),
-               ("prefix_sum", "prefix_sum_kernel", 3))
+               ("prefix_sum", "prefix_sum_kernel", 3),
+               ("vel_stage_level", "vel_stage_level_kernel", 4),
+               ("vel_stage_epilogue", "vel_stage_epilogue_kernel", 1))
 # words of the kernels' device names counted in a replay's profile (the
 # two velocity-scan instances by their first template argument, CGG)
 REPLAY_WORDS = ("hit_slab", "window_dp", "walk_kernel",
                 "vel_scan_kernel<true", "vel_scan_kernel<false", "admm_vel",
-                "assemble_kernel", "prefix_sum_kernel")
+                "assemble_kernel", "prefix_sum_kernel",
+                "vel_stage_level_kernel", "vel_stage_epilogue_kernel")
 
 
 def _tick_ms(fn, n):
@@ -2136,7 +2215,9 @@ SHARDED_WORDS = dict(hit_slab="hit_slab", window_dp="window_dp",
                      vel_scan="vel_scan_kernel<false",
                      minplus="minplus_kernel", admm_vel="admm_vel",
                      assemble="assemble_kernel",
-                     prefix_sum="prefix_sum_kernel")
+                     prefix_sum="prefix_sum_kernel",
+                     vel_stage_level="vel_stage_level_kernel",
+                     vel_stage_epilogue="vel_stage_epilogue_kernel")
 
 
 def _same_sharded(label, got, ref):
@@ -2432,7 +2513,8 @@ def main():
     from graphbasedlocaltrajectoryplanner_torch.models import track as tt
     from graphbasedlocaltrajectoryplanner_torch.ops import (
         cuda_admm, cuda_assemble, cuda_backtrace, cuda_build, cuda_collision,
-        cuda_graph, cuda_minplus, cuda_prefix, cuda_velocity, cuda_window)
+        cuda_graph, cuda_minplus, cuda_prefix, cuda_velocity, cuda_velstage,
+        cuda_window)
     from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
     from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
@@ -2452,7 +2534,8 @@ def main():
     mods = dict(cuda_collision=cuda_collision, cuda_window=cuda_window,
                 cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity,
                 cuda_minplus=cuda_minplus, cuda_admm=cuda_admm,
-                cuda_assemble=cuda_assemble, cuda_prefix=cuda_prefix)
+                cuda_assemble=cuda_assemble, cuda_prefix=cuda_prefix,
+                cuda_velstage=cuda_velstage)
 
     def wrapper(path):
         m, f = path.split(".")
@@ -2525,6 +2608,8 @@ def main():
         "vel_scan": velops.stacked_vel_scan,
         "assemble": cuda_assemble.assemble_path_plain,
         "prefix_sum": cuda_prefix.blocked_cumsum_plain,
+        "vel_stage_level": cuda_velstage.fb_level_plain,
+        "vel_stage_epilogue": cuda_velstage.epilogue_plain,
     }
     stats = {}
     for name, path, src, repl in KERNELS[:len(FLEET)]:
@@ -2546,6 +2631,17 @@ def main():
           f"wrapper calls), bound {p['bound_ms']:.5f} ms ({p['bound_by']}: "
           f"{p['bytes']} B), {100 * p['bound_ms'] / p['ms']:.1f} % of it; "
           f"plain {p['plain_ms']:.4f} ms", flush=True)
+    g = {k: sum(stats[n][k] for n in GLUE)
+         for k in ("ms", "wrapper_ms", "plain_ms", "bytes", "ops")}
+    g_bound, g_by = _bound(g["bytes"], g["ops"])
+    print(f"kernel vel_stage fb tick: {len(calls['vel_stage_level'])} level "
+          f"calls {stats['vel_stage_level']['ms']:.5f} ms + "
+          f"{len(calls['vel_stage_epilogue'])} epilogue "
+          f"{stats['vel_stage_epilogue']['ms']:.5f} ms = {g['ms']:.5f} ms on "
+          f"the device ({g['wrapper_ms']:.4f} ms of wrapper calls), bound "
+          f"{g_bound:.5f} ms ({g_by}: {g['bytes']} B), "
+          f"{100 * g_bound / g['ms']:.1f} % of it; plain {g['plain_ms']:.4f} "
+          f"ms", flush=True)
 
     n_ragged = ragged_vel_scans(cuda_velocity.CHUNK)
     print(f"ragged shapes: vel_scan and vel_scan_cgg bit-equal to the plain "
@@ -2572,6 +2668,13 @@ def main():
           f"on {n_p} calls (row lengths 1-5,000, strided, with and without "
           f"the leading zero) and on the sqp fleet tick's {n_sqp} calls, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    n_g, ego = ragged_velstage()
+    print(f"ragged shapes: vel_stage_level and vel_stage_epilogue bit-equal "
+          f"(bits) to the plain version on {n_g} recorded calls of the "
+          f"seeded stage cases (testing_tools/velstage_cases, fb and sqp), "
+          f"ego_stop_d within {100 * ego[1]:.3g} % of its bound ({ego[0]:.3g}"
+          f" m), in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the fleet tick, kernels vs plain, three mixes ------------------
     mixes = [

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("hit_slab", "window_dp", "backtrace", "vel_scan", "minplus",
-           "admm_vel", "assemble", "prefix_sum")
+           "admm_vel", "assemble", "prefix_sum", "vel_stage")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
@@ -97,17 +97,23 @@ _ENTRY = {
     "assemble": ("assemble_launch", [_P] * 9 + [_I] * 7 + [_P]),
     "prefix_sum": ("prefix_sum_launch", [_P, _P] + [_LL] * 3 + [_I] * 2
                    + [_P]),
+    # ops/cuda_velstage.StageArgs by pointer
+    "vel_stage": ("vel_stage_level_launch", [_P, _P]),
+    "vel_stage_epilogue": ("vel_stage_epilogue_launch", [_P, _P]),
 }
+# the source of an entry point named otherwise
+_SOURCE_OF = {"vel_stage_epilogue": "vel_stage"}
 
 
 def load(name: str):
-    """The C entry point of one source (argument and return types set),
-    its library built first if needed."""
+    """The C entry point ``name`` (argument and return types set), its
+    source's library built first if needed."""
     fn = _LIBS.get(name)
     if fn is None:
-        path = _lib_path(name)
+        source = _SOURCE_OF.get(name, name)
+        path = _lib_path(source)
         if not path.exists():
-            build_all([name])
+            build_all([source])
         entry, argtypes = _ENTRY[name]
         fn = getattr(ctypes.CDLL(str(path)), entry)
         fn.argtypes = argtypes
@@ -147,7 +153,13 @@ KERNEL_WRAPPERS = dict(
                     _JAX + "planner/pathgen.py:377"),
     # no Pallas kernel: the JAX package's arc lengths are jnp.cumsum in XLA
     prefix_sum=Kernel("cuda_prefix.blocked_cumsum", _SRC + "prefix_sum.cu",
-                      _JAX + "planner/velplan.py:618"))
+                      _JAX + "planner/velplan.py:618"),
+    # no Pallas kernels: the JAX package runs the fb stage's glue in XLA
+    vel_stage_level=Kernel("cuda_velstage.fb_level", _SRC + "vel_stage.cu",
+                           _JAX + "planner/velplan.py:592"),
+    vel_stage_epilogue=Kernel("cuda_velstage.epilogue",
+                              _SRC + "vel_stage.cu",
+                              _JAX + "planner/velplan.py:772"))
 
 
 def wrappers() -> dict:

@@ -15,12 +15,13 @@ QPs of one call run as one batched solve.
 
 from __future__ import annotations
 
-import math
+from types import SimpleNamespace
 
 import torch
 
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_prefix
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_velstage as vstage
 from graphbasedlocaltrajectoryplanner_torch.ops import dynshift
 from graphbasedlocaltrajectoryplanner_torch.ops import projection as proj
 from graphbasedlocaltrajectoryplanner_torch.ops import qp
@@ -54,11 +55,6 @@ def _cumsum0(x, *, kernels: bool = True):
     return (cuda_prefix.blocked_cumsum if kernels
             else cuda_prefix.blocked_cumsum_plain)(x[..., :-1],
                                                    leading_zero=True)
-
-
-def _at(v, i):
-    """v[..., i[...]] along the last axis."""
-    return torch.gather(v, -1, i.long()[..., None])[..., 0]
 
 
 def opponent_summary(glob_rl, glob_el, obj_pos, v_obj, dyn_model_exp,
@@ -171,74 +167,6 @@ def _follow_control(ctrl_cp, ctrl_kd, ctrl_kp, ctrl_tanw, safety_d,
     return control_d, v_control
 
 
-def _v_idx(s, n_valid, red_len):
-    """The normal branch's end per path: ``n_valid``, or on a reduced
-    horizon the first point 5 m short of the spline end.  ``s`` (..., P)
-    leading-zero arc lengths; ``n_valid``, ``red_len`` (...)."""
-    P = s.shape[-1]
-    spl_len = _at(s, torch.clamp(n_valid - 1, 0, P - 1))
-    below = s[..., 1:] < (spl_len[..., None] - 5.0)  # the sums of el[:-1]
-    v_idx_red = torch.argmin(below.to(torch.int32), dim=-1) + 1
-    v_idx_red = torch.where((v_idx_red == 1) & (n_valid > 1), n_valid,
-                            v_idx_red)
-    return torch.where(red_len, v_idx_red, n_valid)
-
-
-def _normal_bound(vx_normal, v_idx, pref_idx, vel_start, v_max_offset, idx):
-    """The normal profiles (..., P) zeroed from ``v_idx`` on (wholly where
-    nothing is left after the prefix) and their velocity bound."""
-    vx_normal = torch.where(idx >= v_idx[..., None], 0.0, vx_normal)
-    degenerate = (v_idx - pref_idx) <= 1
-    vx_normal = torch.where(degenerate[..., None], 0.0, vx_normal)
-    bound = torch.abs(_at(vx_normal, pref_idx) - vel_start) < v_max_offset
-    return vx_normal, torch.where(degenerate, False, bound)
-
-
-def _profile(path, s, vx, n_valid, idx, filt_window: int = 1):
-    """The profile [s x y psi kappa vx ax] (..., P, 7) of ``vx`` smoothed
-    over ``filt_window`` (``velops.conv_filt``) on ``path``: ax -5 m/s^2
-    where the car stands before the path end (``n_valid`` broadcasts
-    against (..., P-1)), zero at the last point."""
-    vx = velops.conv_filt(vx, filt_window)
-    ax = velops.calc_ax_profile(vx, path[..., 4])
-    stationary = torch.isclose(vx[..., :-1], torch.zeros_like(ax)) \
-        & torch.isclose(ax, torch.zeros_like(ax)) & (idx[:-1] < n_valid - 1)
-    ax = torch.where(stationary, -5.0, ax)
-    ax_f = torch.cat([ax, torch.zeros_like(ax[..., :1])], dim=-1)
-    return torch.stack([s, path[..., 0], path[..., 1], path[..., 2],
-                        path[..., 3], vx, ax_f], dim=-1)
-
-
-# ---- the fb recurrences: a row is one recurrence for each of N paths, its
-# per-step (N, P-1) columns and its (N,) start velocity; ``g`` the (N, P, 2)
-# gg it streams, None for the scan's constant-gg instance ---------------------
-
-def _gg(g, rows):
-    return () if g is None else (g[:, rows, 0], g[:, rows, 1])
-
-
-def _row(k_abs, g, e, v_lim, v0):
-    """A forward or brake row (brake: ``v_lim`` infinite)."""
-    k = k_abs[:, :-1]
-    gs = _gg(g, slice(None, -1))
-    return (k, *gs, k, *gs, e[:, :-1], v_lim, v0)
-
-
-def _fwd_row(k_abs, g, e, v_bound, v0):
-    """A forward row under the pointwise bound ``v_bound`` (N, P)."""
-    return _row(k_abs, g, e, v_bound[:, 1:], torch.minimum(v_bound[:, 0], v0))
-
-
-def _bwd_row(k_abs, g, e, v_f):
-    """The backward refinement of the forward profile ``v_f`` (N, P), on
-    flipped inputs."""
-    def flip(x):
-        return torch.flip(x, dims=[-1])
-    return (flip(k_abs[:, 1:]), *map(flip, _gg(g, slice(1, None))),
-            flip(k_abs[:, :-1]), *map(flip, _gg(g, slice(None, -1))),
-            flip(e[:, :-1]), flip(v_f[:, :-1]), v_f[:, -1])
-
-
 def _scan(const_gg, machines, dyn_model_exp, drag_coeff, m_veh, kernels):
     """The stacked-recurrence scan of :func:`_lvl`: the constant-gg
     instance for ``const_gg`` = (ax, ay) (rows without gg streams), else
@@ -252,17 +180,13 @@ def _scan(const_gg, machines, dyn_model_exp, drag_coeff, m_veh, kernels):
         kernels=kernels)
 
 
-def _lvl(rows, modes, scan):
-    """One dependency level: the r rows stacked to N x r rows of one scan
-    launch.  Returns (N, r, P)."""
-    cols = list(zip(*rows))
-    N, T = cols[0][0].shape
-    r = len(rows)
-    per_step = [torch.stack(c, dim=1).reshape(N * r, T) for c in cols[:-1]]
-    v_init = torch.stack(cols[-1], dim=1).reshape(N * r)
-    mode = cuda_graph.const_vector(modes, torch.int32,
-                                   v_init.device).repeat(N)
-    return scan(*per_step, v_init, mode).reshape(N, r, T + 1)
+def _lvl(level, scan):
+    """One dependency level (``cuda_velstage.level*_plain``'s rows and
+    modes): the r rows stacked to N x r rows of one scan launch.  Returns
+    (N, r, P)."""
+    rows, modes = level
+    N, T = rows[0][0].shape
+    return scan(*vstage.stack_rows(rows, modes)).reshape(N, len(rows), T + 1)
 
 
 def _fb_profiles(kappa, el, s, n_valid, v_idx, red_len, v_end_rl, c_len,
@@ -274,7 +198,8 @@ def _fb_profiles(kappa, el, s, n_valid, v_idx, red_len, v_end_rl, c_len,
     path's brake prefix (level 0), then the follow's ego brake, segment-2
     forward and backward and unconstrained forward and backward beside
     every path's normal forward and backward, as three more levels of one
-    stacked scan each (2k + 5 rows a group).
+    stacked scan each (2k + 5 rows a group); the glue between the levels
+    is ``ops/cuda_velstage``'s plain version.
 
     :param kappa, el, s: (N, k, P); ``n_valid``, ``v_idx``, ``red_len``,
         ``v_end_rl`` (N, k); ``c_len``, ``vel_plan``, ``v_control``,
@@ -286,109 +211,57 @@ def _fb_profiles(kappa, el, s, n_valid, v_idx, red_len, v_end_rl, c_len,
         vx_follow (N, P), follow_bound, too_close (N,)).
     """
     N, k, P = el.shape
-    row_inf = torch.full((N, P - 1), math.inf, dtype=el.dtype,
-                         device=el.device)
-
-    # ---- level 0: brake prefix to a lowered v_max, every path --------------
-    prefix_active = vel_plan > (vel_max + 0.1)                    # (N,)
-    kabs = torch.abs(kappa)
-    el_pref = torch.where(idx < c_len[:, None, None], 0.0, el)
-    v_decel = _lvl([_row(kabs[:, j], gg_pref, el_pref[:, j], row_inf,
-                         vel_plan) for j in range(k)],
-                   [velops.MODE_BRAKE] * k, scan)                 # (N, k, P)
-    reach = v_decel <= vel_max
-    first_reach = torch.argmax(reach.to(torch.int32), dim=-1)
-    first_reach = torch.where(torch.any(reach, dim=-1), first_reach, P - 1)
-    pref_idx = torch.where(prefix_active[:, None],
-                           torch.maximum(first_reach, c_len[:, None]),
-                           c_len[:, None])                        # (N, k)
-    vel_start = torch.where(prefix_active[:, None], _at(v_decel, pref_idx),
-                            vel_plan[:, None])
-    masked = idx < pref_idx[..., None]
-    kabs_m = torch.abs(torch.where(masked, 0.0, kappa))
-    el_m = torch.where(masked, 0.0, el)
-
-    # ---- follow scalars -----------------------------------------------------
-    safety_total = safety_d + veh_length
-    too_close = (obj_dist - safety_total) < 0.0
-    s_f = _cumsum0(el_m[:, fs], kernels=kernels)                  # (N, P)
-    s_stop = obj_dist - safety_total + opp_stop_dist
-    stop_idx = torch.clamp(torch.sum(s_f < s_stop[:, None], dim=-1), 0,
-                           P - 1)
-    # the opponent's raceline velocity after its run-out
-    run = opp_stop_dist - ((obj_dist - safety_total + opp_stop_dist)
-                           - (_at(s[:, fs], torch.clamp(n_valid[:, fs] - 1, 0,
-                                                        P - 1))
-                              - _at(s[:, fs], pref_idx[:, fs])))
-    i_run = torch.clamp(torch.sum(roll_cum < run[:, None], dim=-1) + 1, 0,
-                        roll_vel.shape[-1] - 1)
-    opp_vel_at = torch.where(run <= 0.0, roll_vel[:, 0], _at(roll_vel, i_run))
-    v_end_f = torch.where(s_stop > s_f[:, -1], opp_vel_at, 0.0)
-
-    # ---- normal bounds ------------------------------------------------------
-    v_end = torch.where(red_len, 0.0, v_end_rl)
-    tail = idx >= v_idx[..., None] - 1
-    el_n = torch.where(tail, 0.0, el_m)
-    v_lat = torch.sqrt(ay / torch.clamp(kabs_m, min=1e-9))
-    v0 = torch.minimum(v_lat, vel_max)
-    v0_n = torch.where(tail, torch.minimum(v0, v_end[..., None]), v0)
-
-    # ---- level 1: ego brake + unconstrained fwd (follow) + normal fwd ------
-    kf, ef, vsf = kabs_m[:, fs], el_m[:, fs], vel_start[:, fs]
-    lvl1 = _lvl([_row(kf, gg, ef, row_inf, vsf),
-                 _fwd_row(kf, gg, ef, v0[:, fs], vsf)]
-                + [_fwd_row(kabs_m[:, j], gg, el_n[:, j], v0_n[:, j],
-                            vel_start[:, j]) for j in range(k)],
-                [velops.MODE_BRAKE, velops.MODE_FWD] + [velops.MODE_FWD] * k,
-                scan)
-    v_ego_brake, vf_u, vf_n = lvl1[:, 0], lvl1[:, 1], lvl1[:, 2:]
-    ego_stop_d = velops.stop_distance(v_ego_brake, ef)
-
-    # ---- follow segment-1 hand-off -----------------------------------------
-    seg1_active = (vsf > v_control) & (stop_idx >= 2)
-    below_c = v_ego_brake <= v_control[:, None]
-    idx_c_raw = torch.argmax(below_c.to(torch.int32), dim=-1)
-    idx_c_raw = torch.where(torch.any(below_c, dim=-1), idx_c_raw, stop_idx)
-    idx_c = torch.where(seg1_active,
-                        torch.minimum(torch.where(idx_c_raw == 0, stop_idx,
-                                                  idx_c_raw), stop_idx),
-                        torch.zeros_like(stop_idx))
-    vx_control_start = torch.where(seg1_active, _at(v_ego_brake, idx_c), vsf)
-    el_seg2 = torch.where(idx < stop_idx[:, None], ef, 0.0)
-    el_seg2 = torch.where(idx < idx_c[:, None], 0.0, el_seg2)
-    v0_s = torch.minimum(v_lat[:, fs], v_control[:, None])
-    v0_s = torch.where(idx >= stop_idx[:, None],
-                       torch.minimum(v0_s, v_end_f[:, None]), v0_s)
-
-    # ---- level 2: seg2 fwd + unconstrained bwd (follow) + normal bwd -------
-    lvl2 = _lvl([_fwd_row(kf, gg, el_seg2, v0_s,
-                          torch.minimum(vx_control_start, v_control)),
-                 _bwd_row(kf, gg, ef, vf_u)]
-                + [_bwd_row(kabs_m[:, j], gg, el_n[:, j], vf_n[:, j])
-                   for j in range(k)],
-                [velops.MODE_FWD, velops.MODE_BWD] + [velops.MODE_BWD] * k,
-                scan)
-    vf_s = lvl2[:, 0]
-    vx_compl = torch.flip(lvl2[:, 1], dims=[-1])
-    vx_normal = torch.flip(lvl2[:, 2:], dims=[-1])                # (N, k, P)
-
-    # ---- level 3: seg2 bwd -------------------------------------------------
-    v_seg2 = torch.flip(_lvl([_bwd_row(kf, gg, el_seg2, vf_s)],
-                             [velops.MODE_BWD], scan)[:, 0], dims=[-1])
-
-    # ---- follow assembly ---------------------------------------------------
-    follow_bound = torch.abs(_at(v_seg2, idx_c) - vx_control_start) <= 1.0
-    follow_bound &= ~((~seg1_active) & (stop_idx < 2))
-    vx_follow = torch.where(idx < idx_c[:, None], v_ego_brake, v_seg2)
-    vx_follow = torch.where(idx > stop_idx[:, None], 0.0, vx_follow)
-    follow_bound &= torch.abs(vx_follow[:, 0] - vsf) <= 1.0
-    cannot_hold = ego_stop_d >= s_stop
-    vx_follow = torch.where(cannot_hold[:, None], v_ego_brake, vx_follow)
-    follow_bound = torch.where(cannot_hold, True, follow_bound)
-    vx_follow = torch.minimum(vx_follow, vx_compl)
-    return (pref_idx, vel_start, v_decel, masked, vx_normal,
+    g = SimpleNamespace(
+        kappa=kappa, el=el, s=s, n_valid=n_valid, v_idx=v_idx,
+        red_len=red_len, v_end_rl=v_end_rl, c_len=c_len, vel_plan=vel_plan,
+        vel_max=vel_max, ay=ay, gg_pref=gg_pref, gg=gg, fs=fs,
+        v_control=v_control, obj_dist=obj_dist, safety_d=safety_d,
+        veh_length=veh_length, opp_stop_dist=opp_stop_dist,
+        roll_vel=roll_vel, roll_cum=roll_cum, idx=idx)
+    v_decel = _lvl(vstage.level0_plain(g), scan)                # (N, k, P)
+    vstage.slots_plain(g, v_decel)
+    vstage.slot_tensors_plain(g)
+    lvl1 = _lvl(vstage.level1_plain(g), scan)
+    vstage.follow_plain(g, lvl1, _cumsum0(g.ef, kernels=kernels))
+    lvl2 = _lvl(vstage.level2_plain(g, lvl1), scan)
+    lvl3 = _lvl(vstage.level3_plain(g, lvl2), scan)
+    vx_normal, vx_follow, follow_bound = vstage.assembly_plain(g, lvl1, lvl2,
+                                                           lvl3)
+    return (g.pref_idx, g.vel_start, v_decel, g.masked, vx_normal,
             torch.zeros((N, k), dtype=torch.int32, device=el.device),
-            torch.zeros_like(el), vx_follow, follow_bound, too_close)
+            torch.zeros_like(el), vx_follow, follow_bound, g.too_close)
+
+
+def _fb_kernels(paths, s4, n_valids, red_len, v_end_rl, c_len, vel_plan,
+                vel_max, ay, v_control, obj_dist, safety_d, veh_length,
+                opp_stop_dist, roll_vel, roll_cum, fs: int, vel_course,
+                v_max_offset, scan):
+    """The fb backend and the stage's tail through the glue kernels of
+    ``ops/cuda_velstage`` (constant-gg rows on the card): each level's rows
+    written by one launch and scanned by another, the follow path's masked
+    arc lengths summed from level 1's rows, then one epilogue launch.
+    Returns (trajs, vel_bound, too_close)."""
+    common = (paths, s4, n_valids, red_len, v_end_rl, c_len, vel_plan,
+              vel_max, ay, v_control, obj_dist, safety_d, veh_length,
+              opp_stop_dist, roll_vel, roll_cum, fs)
+    N, k, P = paths.shape[:3]
+    lv0 = scan(*vstage.fb_level(0, *common))
+    *rows, pref_idx, vel_start, v_idx = vstage.fb_level(1, *common, lv=lv0)
+    lv1 = scan(*rows)
+    # the ego brake row's element lengths are the follow path's masked ones
+    s_f = cuda_prefix.blocked_cumsum(rows[2].view(N, k + 2, P - 1)[:, 0],
+                                     leading_zero=True)
+    slots = (pref_idx, vel_start, v_idx)
+    *rows, = vstage.fb_level(2, *common, lv=lv1, s_f=s_f, slots=slots)
+    follow = tuple(rows[6:])
+    lv2 = scan(*rows[:6])
+    lv3 = scan(*vstage.fb_level(3, *common, lv=lv2, slots=slots,
+                                follow=follow))
+    trajs, vel_bound = vstage.epilogue(
+        paths, s4, n_valids, c_len, vel_course, red_len, v_max_offset, fs,
+        v_idx, pref_idx, vel_start, lv0=lv0, lv1=lv1, lv2=lv2, lv3=lv3,
+        follow=follow)
+    return trajs, vel_bound, follow[vstage.FOLLOW_STATE.index("too_close")]
 
 
 def _sqp_qps(kappa, el, gg, n_valid, v_idx, c_len, vel_plan, vel_max,
@@ -444,8 +317,8 @@ def _sqp_qps(kappa, el, gg, n_valid, v_idx, c_len, vel_plan, vel_max,
         vx_qf = torch.where((st_f == -3)[..., None], 0.0, vx[:, k:])
         shift = c_len[:, None]
         vx_follow = _place_back(vx_qf, shift, P)                  # (N, 1, P)
-        follow_bound = torch.abs(_at(vx_follow, shift) - vel_plan[:, None]) \
-            < v_max_offset
+        follow_bound = torch.abs(vstage.at(vx_follow, shift)
+                                 - vel_plan[:, None]) < v_max_offset
         # the warm-start store: the m grid values, the last repeated to P
         vx_sqp = torch.where(is_follow[..., None], vx_qf, vx_qn)
         vx_sqp = torch.cat([vx_sqp, vx_sqp[..., -1:].expand(
@@ -487,6 +360,13 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
     of ``ops/velocity.conv_filt`` (the handler's smoothing; ignored under
     ``sqp``, as the reference filters only the fb planner's profiles).
 
+    On the card with the kernels the glue around the recurrences is
+    ``ops/cuda_velstage``'s kernels: under ``fb`` with ``const_gg`` and no
+    smoothing each level's rows come from one launch and the tail from one
+    more (:func:`_fb_kernels`), under ``sqp`` the tail; elsewhere (the CPU,
+    ``kernels=False``, gg streams, ``filt_window`` > 1) their plain
+    versions run, with the same results.
+
     :param paths: (B, 4, P, 5) [x y psi kappa el]; ``n_valids``,
         ``v_end_rl``, ``red_len`` (B, 4); ``gg`` (P, 2) shared local gg
         (unscaled); ``vel_course`` (B, P); ``c_len``, ``vel_plan``,
@@ -508,56 +388,71 @@ def velocity_stage_scenario(paths, n_valids, gg, vel_course, c_len, vel_plan,
     Fs = follow_slot
     B, _, P, _ = paths.shape
     dev = paths.device
-    idx = torch.arange(P, device=dev)
-    kappa = paths[..., 3]
-    el = paths[..., 4]                                        # (B, 4, P)
     sqp = vp_backend == "sqp"
     if not sqp and vp_backend != "fb":
         raise ValueError(f"unknown velocity backend {vp_backend!r}")
     c_len = c_len.long()
     if s4 is None:
-        s4 = _cumsum0(el, kernels=kernels)                        # (B, 4, P)
-    v_idx = _v_idx(s4, n_valids, red_len)                         # (B, 4)
-    is_follow = torch.arange(4, device=dev) == Fs
-    gg_b = gg.expand(B, P, 2)
-    if sqp:
-        out = _sqp_qps(
-            kappa, el, gg_b, n_valids, v_idx, c_len, vel_plan, vel_max,
-            v_max_offset, Fs, is_follow, torch.arange(4, device=dev) >= 2,
-            obj_dist, v_obj, safety_d, veh_length, sqp_x0, veh_turn,
-            tire_end_idx, tire_end_mps2, sqp_m, sqp_step, machines,
-            drag_coeff, m_veh, idx, kernels)
-    else:
+        s4 = _cumsum0(paths[..., 4], kernels=kernels)             # (B, 4, P)
+    # the glue kernels of ops/cuda_velstage: on the card with the kernels,
+    # for the constant-gg fb rows or the sqp profiles, unsmoothed
+    glue = kernels and dev.type != "cpu" and (
+        sqp or (const_gg is not None and filt_window == 1))
+    tail = dict(paths=paths, s=s4, n_valid=n_valids, c_len=c_len,
+                vel_course=vel_course, red_len=red_len,
+                v_max_offset=v_max_offset, fs=Fs)
+    if not sqp:
         _, v_control = _follow_control(ctrl_cp, ctrl_kd, ctrl_kp, ctrl_tanw,
                                        safety_d, veh_length, obj_dist, v_obj,
                                        vel_est, vel_max, control_type)
+        scan = _scan(const_gg, machines, dyn_model_exp, drag_coeff, m_veh,
+                     kernels)
+        zeros = (torch.zeros((B, 4), dtype=torch.int32, device=dev),
+                 torch.zeros((B, 4, P), dtype=paths.dtype, device=dev))
+    if glue and not sqp:
+        trajs, vel_bound, too_close = _fb_kernels(
+            paths, s4, n_valids, red_len, v_end_rl, c_len, vel_plan,
+            vel_max, gg[:, 1], v_control, obj_dist, safety_d, veh_length,
+            opp_stop_dist, roll_vel, roll_cum, Fs, vel_course, v_max_offset,
+            scan)
+        return dict(trajs=trajs, vel_bound=vel_bound, too_close=too_close,
+                    vx_sqp=zeros[1], qp_status=zeros[0])
+    idx = torch.arange(P, device=dev)
+    kappa = paths[..., 3]
+    el = paths[..., 4]                                        # (B, 4, P)
+    v_idx = vstage.end_index(s4, n_valids, red_len)               # (B, 4)
+    gg_b = gg.expand(B, P, 2)
+    if sqp:
+        (pref_idx, vel_start, v_decel, _, vx_normal, qp_status, vx_sqp,
+         vx_follow, follow_bound, too_close) = _sqp_qps(
+            kappa, el, gg_b, n_valids, v_idx, c_len, vel_plan, vel_max,
+            v_max_offset, Fs, torch.arange(4, device=dev) == Fs,
+            torch.arange(4, device=dev) >= 2, obj_dist, v_obj, safety_d,
+            veh_length, sqp_x0, veh_turn, tire_end_idx, tire_end_mps2, sqp_m,
+            sqp_step, machines, drag_coeff, m_veh, idx, kernels)
+        if glue:
+            trajs, vel_bound = vstage.epilogue(
+                **tail, v_idx=v_idx, pref_idx=pref_idx, vel_start=vel_start,
+                vx_normal=vx_normal, vx_follow=vx_follow,
+                follow_bound=follow_bound)
+            return dict(trajs=trajs, vel_bound=vel_bound,
+                        too_close=too_close, vx_sqp=vx_sqp,
+                        qp_status=qp_status)
+    else:
         streams = None if const_gg is not None else gg_b
-        out = _fb_profiles(
+        (pref_idx, vel_start, v_decel, _, vx_normal, _, _, vx_follow,
+         follow_bound, too_close) = _fb_profiles(
             kappa, el, s4, n_valids, v_idx, red_len, v_end_rl, c_len,
             vel_plan, vel_max, gg[:, 1], streams, streams, Fs, v_control,
             obj_dist, safety_d, veh_length, opp_stop_dist, roll_vel, roll_cum,
-            idx, _scan(const_gg, machines, dyn_model_exp, drag_coeff, m_veh,
-                       kernels), kernels)
-    (pref_idx, vel_start, v_decel, masked, vx_normal, qp_status, vx_sqp,
-     vx_follow, follow_bound, too_close) = out
-    vx_normal, normal_bound = _normal_bound(vx_normal, v_idx, pref_idx,
-                                            vel_start, v_max_offset, idx)
-
-    # ---- select per slot + prefix + smoothing + acceleration ---------------
-    vx_follow_sel = torch.where(red_len[:, Fs, None],
-                                torch.minimum(vx_follow, vx_normal[:, Fs]),
-                                vx_follow)
-    vx_branch = torch.where(is_follow[None, :, None], vx_follow_sel[:, None],
-                            vx_normal)
-    vel_bound = torch.where(is_follow[None, :], follow_bound[:, None],
-                            normal_bound)
-    vx_full = torch.where(masked, v_decel, vx_branch)
-    vx_full = torch.where(idx < c_len[:, None, None], vel_course[:, None, :],
-                          vx_full)
-    return dict(trajs=_profile(paths, s4, vx_full, n_valids[..., None], idx,
-                               1 if sqp else filt_window),
-                vel_bound=vel_bound, too_close=too_close, vx_sqp=vx_sqp,
-                qp_status=qp_status)
+            idx, scan, kernels)
+        qp_status, vx_sqp = zeros
+    trajs, vel_bound = vstage.tail_plain(
+        **tail, v_idx=v_idx, pref_idx=pref_idx, vel_start=vel_start,
+        v_decel=v_decel, vx_normal=vx_normal, vx_follow=vx_follow,
+        follow_bound=follow_bound, filt_window=1 if sqp else filt_window)
+    return dict(trajs=trajs, vel_bound=vel_bound, too_close=too_close,
+                vx_sqp=vx_sqp, qp_status=qp_status)
 
 
 def emergency_kernel(traj, gg, kernels: bool = True):
@@ -625,7 +520,7 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
     control_d, v_control = _follow_control(
         ctrl_cp, ctrl_kd, ctrl_kp, ctrl_tanw, safety_d, veh_length, obj_dist,
         v_obj, vel_est, vel_max, control_type)
-    v_idx = _v_idx(s, n_valid, red_len)
+    v_idx = vstage.end_index(s, n_valid, red_len)
     if sqp:
         out = _sqp_qps(
             kappa, el, gg, n_valid[:, None], v_idx[:, None],
@@ -650,7 +545,7 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
     (pref_idx, vel_start, v_decel, masked, vx_normal, qp_status,
      vx_sqp) = (x[:, 0] for x in out[:7])
     vx_follow, follow_bound, too_close = out[7:]
-    vx_normal, normal_bound = _normal_bound(vx_normal, v_idx, pref_idx,
+    vx_normal, normal_bound = vstage.normal_bound(vx_normal, v_idx, pref_idx,
                                             vel_start, v_max_offset, idx)
 
     # ---- select / merge, then the course, the prefix and the branch --------
@@ -664,7 +559,7 @@ def velocity_kernel(path, n_valid, gg, vel_course, c_len, vel_plan, vel_est,
     vx_full = torch.where(idx < vel_idx, vel_course,
                           torch.where(masked, v_decel, vx_branch))
     # the reference smooths the fb profiles only
-    return dict(traj=_profile(path, s, vx_full, n_valid[:, None], idx,
+    return dict(traj=vstage.profile(path, s, vx_full, n_valid[:, None], idx,
                               1 if sqp else filt_window),
                 vel_bound=vel_bound, too_close=too_close,
                 follow_v_control=v_control, follow_control_d=control_d,
@@ -688,8 +583,8 @@ def brake_on_backup_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
         kappa[None], el_m[None], gg[None], vel_plan.reshape(1),
         dyn_model_exp, drag_coeff, m_veh, kernels=kernels)[0]
     vx_full = torch.where(idx < c_len, vel_course, vx)
-    return _profile(path, _cumsum0(el, kernels=kernels), vx_full, n_valid,
-                    idx)
+    return vstage.profile(path, _cumsum0(el, kernels=kernels), vx_full,
+                          n_valid, idx)
 
 
 def brake_em_sqp_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
@@ -723,5 +618,5 @@ def brake_em_sqp_kernel(path, n_valid, gg, vel_course, c_len, vel_plan,
         pin_idx=0, x0_v=x0, kernels=kernels)
     vx_full = _place_back(vx_m, c_len, P)
     vx_full = torch.where(idx < c_len, vel_course, vx_full)
-    return _profile(path, _cumsum0(el, kernels=kernels), vx_full, n_valid,
-                    idx)
+    return vstage.profile(path, _cumsum0(el, kernels=kernels), vx_full,
+                          n_valid, idx)

@@ -30,7 +30,13 @@ Kernel gates, each ``torch.equal`` (bit-equal) to the plain version:
     the JAX gate leaves out (no production path there runs a Pallas kernel
     for them); ``prefix_sum`` also on a seeded strided case of rows of
     4,097 (every level of its recursion, signed zeros), its outputs' bits
-    compared too.
+    compared too;
+  * ``vel_stage_level`` and ``vel_stage_epilogue`` (``ops/cuda_velstage``)
+    on the four level calls and the epilogue call of the fb fleet tick at
+    ``batch`` and the epilogue call of the sqp tick, bits compared too,
+    but for the follow path's stopping distance ``ego_stop_d``, held
+    within ``cuda_velstage.stop_distance_bound`` of the plain sum (its
+    largest reading reported).
 
 End-to-end gates: the compiled card tick (``make_batched_tick`` on the
 card) against the port's plain tick on the CPU in this process, on the
@@ -245,6 +251,58 @@ def check_window_kernels(lat, batch: int, dev) -> dict:
     return rep
 
 
+def check_velstage(lat, batch: int, dev) -> dict:
+    """The fb stage's glue kernels on the recorded calls of the velocity
+    stage of one fb and one sqp fleet tick (eager bodies) at ``batch``
+    (seed 11, two opponents): the fb stage's through the kernel route
+    (``velstage_cases.route``, which on the CPU composes the plain
+    versions), the sqp stage's as the tick runs it (on the card)."""
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    from graphbasedlocaltrajectoryplanner_torch.planner import velplan
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        velstage_cases as vc)
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
+    scen = sc.random_scenarios(lat, batch, seed=11, n_objects=2, device=dev)
+    calls = {"vel_stage_level": [], "vel_stage_epilogue": []}
+    for kw, run in (({}, vc.route),
+                    (SQP, lambda a, k: velplan.velocity_stage_scenario(
+                        *a, **k))):
+        tick = cuda_graph.eager(sc.make_batched_tick(lat, device=dev, **kw))
+        (args, kwargs), = vc.stage_calls(lambda: tick(scen))
+        _, got = vc.recorded(lambda: run(args, kwargs))
+        for name in calls:
+            calls[name] += got[name]
+    rep = {}
+    for name, cs in calls.items():
+        if not cs:
+            raise RuntimeError(f"the ticks made no {name} call")
+        kern = cuda_build.wrappers()[name]
+        before, ok, mism, diff, n, ego, shapes = kern.launches, True, 0, \
+            0.0, 0, None, []
+        for a, kw in cs:
+            want = vc.plain_of(name)(*a, **kw)
+            _spoil([(x.shape, x.dtype) for x in want], dev)
+            got = vc.kernel_of(name)(*a, **kw)
+            _sync(dev)
+            good, _, e = vc.compare(name, a, kw, got, want)
+            ok &= good
+            ego = e if e else ego
+            for x, y in zip(got, want):
+                if x.shape == y.shape:
+                    mism += int((x != y).sum())
+                    if x.numel() and x.dtype != torch.bool:
+                        diff = max(diff, float((x.double() - y.double()).abs()
+                                               .nan_to_num(0.0).max()))
+                n += y.numel()
+            shapes.append([list(x.shape) for x in got])
+        launches = cuda_build.wrappers()[name].launches - before
+        rep[name] = dict(equal=bool(ok), mismatches=mism, max_abs_diff=diff,
+                         n=n, launches=launches, shapes=shapes[:5],
+                         calls_in_tick=len(cs), ego_stop_d=ego,
+                         ok=bool(ok and (launches > 0 or dev.type != "cuda")))
+    return rep
+
+
 def velocity_case(dev):
     """The seeded R=16, T=447 case of ``pallas_parity.check_velocity``:
     curvature, constant gg 10 m/s^2, 2.5 m steps (10 % zero), limits, start
@@ -370,6 +428,7 @@ def run(batch: int = 128, lat=None, device=None, out: str = None) -> dict:
         kernels.update(check_window_kernels(lat, batch, dev))
         kernels.update(check_velocity(dev))
         kernels.update(check_backtrace(dev))
+        kernels.update(check_velstage(lat, batch, dev))
         report["kernels"] = {k: kernels[k] for k in KERNELS}
         report["end_to_end"] = check_end_to_end(lat, dev)
         report["end_to_end_sqp"] = check_end_to_end(lat, dev, SQP, E2E_SQP)
