@@ -2,8 +2,12 @@
 // C2 refit of each row's node chain and its resampling, in one launch.
 //
 // No TPU kernel: the JAX package runs planner/pathgen.assemble_action_kernel
-// in XLA.  Semantics of ops/cuda_assemble.assemble_path_plain, bit for bit,
-// per row r with horizon h = h_eff[r]:
+// in XLA.  A deliberate departure from it: at h = H the JAX package's refit
+// drops the last inner knot's end-tangent term; here, as in the unpadded
+// ops/splines.fit_clamped_chain and the upstream planner, the term moves to
+// the right-hand side (rows with h < H are unchanged).  Semantics of
+// ops/cuda_assemble.assemble_path_plain, bit for bit, per row r with
+// horizon h = h_eff[r]:
 //   * edge j of the chain, j = 0..H, is packed[win[j], n_j, n_min(j+1,H)]
 //     (nodes clamped to [0, N)): [npts, len, a0x a0y a1x a1y a2x a2y a3x a3y];
 //     edges j >= h count 1 point and length 1;
@@ -11,8 +15,10 @@
 //   * the clamped C2 fit through the edges' start points (those past h on
 //     the point at h), chord lengths the stored lengths, start heading
 //     psi_s, end heading the analytic heading of edge h - 1 at t = 1;
-//     equations from h - 1 on pinned to the end heading; one Thomas sweep
-//     in the order of ops/splines._thomas;
+//     equations from h - 1 on pinned to the end heading; at h = H none is
+//     pinned and the last inner equation takes -lam * (end tangent) on its
+//     right-hand side, its upper term 0; one Thomas sweep in the order of
+//     ops/splines._thomas;
 //   * point i lies on segment min(#{j >= 1: node_idx[j] <= i}, H - 1), at
 //     t = clamp((i - node_idx[seg]) / max(npts[seg] - 1, 1), 0, 1): x, y,
 //     heading, curvature of the refit, element length of the stored edge
@@ -264,6 +270,11 @@ assemble_kernel(const Args a, int warps) {
       ry = ry + (-s.sc[1]);
     }
     float lo = i == 0 ? 0.0f : 1.0f, di = 2.0f * (1.0f + lam), up = lam;
+    if (h == H && i == n - 1) {     // a full row: the end tangent's term
+      rx = rx + (-lam * s.sc[2]);
+      ry = ry + (-lam * s.sc[3]);
+      up = 0.0f;
+    }
     if (i >= h - 1) {
       lo = 0.0f;
       di = 1.0f;

@@ -16,6 +16,14 @@ per-edge counts.  Outputs: ``path`` (R, p_max, 5) ``[x y psi kappa el]``,
 reads row ``r // (R / R0)``: the fleet tick's four slots of a scenario,
 and the facade's actions, share their scenario's window without a copy.
 The kernel equals the plain version bit for bit.
+
+A deliberate departure from the JAX package: a row whose horizon is H
+(``n_seg == H``, no equation pinned) carries the last inner knot's term
+in the known end tangent on the right-hand side of its tridiagonal
+system, as the unpadded ``ops/splines.fit_clamped_chain`` and the
+upstream planner do.  The JAX package's ``pathgen._fit_clamped_chain_padded``
+drops that term, so on those rows it differs from this module by up to
+metres; rows with ``n_seg < H`` are computed as before, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,7 +39,10 @@ from graphbasedlocaltrajectoryplanner_torch.ops.heading import (
 def _fit_clamped_chain_padded(points, el, psi_s, psi_e, n_seg, H):
     """Clamped C2 chain fit per row with a per-row segment count
     ``n_seg <= H``: equations at or beyond the true end pin the tangent to
-    the end heading, keeping the tridiagonal system at static size.
+    the end heading, keeping the tridiagonal system at static size.  A row
+    with ``n_seg == H`` pins none, and its last inner equation takes the
+    end tangent's term on the right-hand side, as
+    ``ops/splines.fit_clamped_chain`` does.
 
     ``points`` (R, H+1, 2), ``el`` (R, H), ``psi_s``/``psi_e``/``n_seg``
     (R,).  Returns coefficients (R, H, 4, 2)."""
@@ -52,6 +63,14 @@ def _fit_clamped_chain_padded(points, el, psi_s, psi_e, n_seg, H):
     diag = torch.where(pin, 1.0, diag)
     upper = torch.where(pin, 0.0, upper)
     rhs = torch.where(pin[..., None], mn[:, None, :], rhs)
+    # a full row (n_seg == H) pins nothing: its last inner equation's term
+    # in the known end tangent moves to the right-hand side
+    full = n_seg.long() == H                                    # (R,)
+    rhs_end = torch.where(full[:, None],
+                          rhs[:, -1] + (-lam[:, -1:] * mn), rhs[:, -1])
+    rhs = torch.cat([rhs[:, :-1], rhs_end[:, None]], dim=1)
+    upper = torch.where(full[:, None] & (j[None, :] == lam.shape[1] - 1),
+                        0.0, upper)
     u = spl._thomas(lower.T, diag.T, upper.T,
                     rhs.transpose(0, 1)).transpose(0, 1)        # (R, H-1, 2)
     m = torch.cat([m0[:, None], u, mn[:, None]], dim=1)        # (R, H+1, 2)

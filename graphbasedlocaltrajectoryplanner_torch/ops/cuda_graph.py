@@ -62,8 +62,13 @@ the graph); ``report()`` reads the last replay's device ms by span from
 them, and the call's copy-in, replay, clone-out, warm-up and capture run
 inside host spans ``gltpl.call.*`` for the profiler.  Outside it the
 graph is the untraced one, node for node, and a replay tests one flag.
-Counters are always on: ``captures``, ``replays`` and ``eager_calls`` of a
-captured callable, and each graph's nodes by type, read once at capture.
+Inside :func:`tracing` the body's :func:`count` counters count too: a
+traced graph adds each call's count into a device total of its own, which
+``report()`` gives, and an eager call adds it into the totals that the
+``tracing()`` block yields; outside it :func:`count` computes nothing, so
+the untraced graph holds no node of it.  Counters are always
+on: ``captures``, ``replays`` and ``eager_calls`` of a captured callable,
+and each graph's nodes by type, read once at capture.
 """
 
 from __future__ import annotations
@@ -131,8 +136,14 @@ _capturing = 0
 # the depth of nested tracing() blocks
 _tracing = 0
 # the traced CapturedCall whose capture is under way: its spans record
-# events
+# events, its counters add on the device
 _recording = None
+# the traced CapturedCall whose warm-up is under way: its counters are
+# made (outside the capture, so that a replay does not zero them)
+_warming = None
+# the eager calls' counters of the open tracing() blocks, innermost last:
+# name -> device total
+_counted = []
 
 
 @contextlib.contextmanager
@@ -155,12 +166,17 @@ def tracing():
     the call's signature (captured at its first traced call): the spans'
     and the graph's timing events are nodes of it, and the call's host
     work runs inside ``gltpl.call.*`` spans.  Outside it the untraced
-    graphs run as they were captured."""
+    graphs run as they were captured.  Yields the block's eager counters:
+    each :func:`count` counter's device total over the eager calls made
+    inside it (not those of an inner block), read after the stream has
+    synchronised."""
     global _tracing
     _tracing += 1
+    _counted.append({})
     try:
-        yield
+        yield _counted[-1]
     finally:
+        _counted.pop()
         _tracing -= 1
 
 
@@ -194,6 +210,26 @@ def span(name: str):
     if not _tracing:
         return record_function(name)
     return _Span(name)
+
+
+def count(name: str, rows) -> None:
+    """Counter ``name`` of the call under way, inside :func:`tracing`
+    only: ``rows()`` (a callable, so that nothing is computed outside
+    it) gives a tensor whose sum is added, on the device, to the traced
+    graph's total (``CapturedCall.report()``) or, in an eager call, to
+    the innermost ``tracing()`` block's."""
+    if not _tracing:
+        return
+    n = rows().sum()
+    if _warming is not None:       # made here, so that a replay adds to it
+        _warming.counts.setdefault(name, torch.zeros_like(n))
+    elif _recording is not None:
+        if name not in _recording.counts:
+            raise RuntimeError(f"counter {name!r} first met under capture")
+        _recording.counts[name].add_(n)
+    else:
+        totals = _counted[-1]
+        totals[name] = totals[name] + n if name in totals else n
 
 
 def capturing() -> bool:
@@ -279,13 +315,15 @@ class CapturedCall:
     its ``replays``.  A ``traced`` graph (captured inside :func:`tracing`)
     holds the timing events of its spans (``spans``: name, the index of
     the enclosing span or None, entry and exit event, in capture order)
-    and of its first and last node (``bounds``)."""
+    and of its first and last node (``bounds``), and the device totals of
+    its :func:`count` counters over its replays (``counts``)."""
 
     def __init__(self, fn, spec, tensors, device: torch.device,
                  traced: bool = False, n: int = 0):
         self.traced = traced
         self.replays = 0
         self.spans, self.bounds, self._open_spans = [], None, []
+        self.counts = {}
         self.static_in = [torch.empty(t.shape, dtype=t.dtype, device=device)
                           for t in tensors]
         self._copy_in(tensors)
@@ -294,8 +332,13 @@ class CapturedCall:
         side = _cuda.Stream(device)
         side.wait_stream(cur)
         t0 = time.perf_counter()
-        with self._host("gltpl.call.warmup", n), _cuda.stream(side):
-            fn(*args, **kwargs)
+        global _capturing, _recording, _warming
+        _warming = self if traced else None
+        try:
+            with self._host("gltpl.call.warmup", n), _cuda.stream(side):
+                fn(*args, **kwargs)
+        finally:
+            _warming = None
         cur.wait_stream(side)
         _cuda.synchronize(device)
         self.warmup_ms = (time.perf_counter() - t0) * 1e3
@@ -305,7 +348,6 @@ class CapturedCall:
         t0 = time.perf_counter()
         # the graph is kept after capture, for its node count
         self.graph = _cuda.CUDAGraph(keep_graph=True)
-        global _capturing, _recording
         _capturing += 1
         outer, _recording = _recording, (self if traced else None)
         try:
@@ -380,8 +422,10 @@ class CapturedCall:
         device ms of its last replay: ``ranges`` (per span name its
         inclusive ms summed over its occurrences, the name of the span
         around its first occurrence or None, and its count), ``graph_ms``
-        (first node to last) and ``other_ms`` (``graph_ms`` less the
-        outermost spans).  Read after the stream has synchronised: the
+        (first node to last), ``other_ms`` (``graph_ms`` less the
+        outermost spans) and each :func:`count` counter's total over the
+        replays under its name (``full_horizon_rows``: the assembly's rows
+        with ``n_seg == H``).  Read after the stream has synchronised: the
         reading itself never waits for the device."""
         rep = dict(traced=self.traced, replays=self.replays,
                    warmup_ms=self.warmup_ms, capture_ms=self.capture_ms,
@@ -401,6 +445,7 @@ class CapturedCall:
         graph_ms = self.bounds[0].elapsed_time(self.bounds[1])
         rep.update(ranges=ranges, graph_ms=graph_ms,
                    other_ms=graph_ms - outer)
+        rep.update({k: int(v) for k, v in self.counts.items()})
         return rep
 
 

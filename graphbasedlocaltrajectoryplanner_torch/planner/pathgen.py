@@ -331,6 +331,9 @@ def assemble_action_kernel(lat: Lattice, win_layers, nodes, h_eff, psi_s,
     """
     if packed is None:
         packed = packed_edge_table(lat)
+    # inside cuda_graph.tracing() only: the rows fitted at n_seg == H
+    cuda_graph.count("full_horizon_rows",
+                     lambda: h_eff == nodes.shape[1] - 1)
     fn = (cuda_assemble.assemble_path if kernels
           else cuda_assemble.assemble_path_plain)
     return fn(packed, win_layers, nodes, h_eff, psi_s, p_max)

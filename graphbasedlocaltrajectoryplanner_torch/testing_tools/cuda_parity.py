@@ -241,6 +241,9 @@ def check_window_kernels(lat, batch: int, dev) -> dict:
         "assemble", lambda: _outputs(cuda_assemble.assemble_path(*a, **kw)),
         _outputs(cuda_assemble.assemble_path_plain(*a, **kw)), dev)
     rep["assemble"]["calls_in_tick"] = len(calls["assemble_path"])
+    # rows at the full horizon (n_seg == H: no equation pinned)
+    rep["assemble"]["full_horizon_rows"] = int(
+        (a[3] == a[2].shape[1] - 1).sum())
     x = prefix_case(dev)
     cases = calls["blocked_cumsum"] + [((x,), {}),
                                        ((x,), dict(leading_zero=True))]

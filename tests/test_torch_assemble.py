@@ -1,15 +1,25 @@
 """PyTorch port, the path assembly's wrapper (``ops/cuda_assemble``) on the
 CPU, where it takes its plain version:
 
+- the padded refit ``_fit_clamped_chain_padded`` against the unpadded
+  ``ops/splines.fit_clamped_chain`` on seeded chains of every segment
+  count 1..H, for H = 6 and H = 27: at ``n_seg == H`` no equation is
+  pinned and the end tangent's term goes to the right-hand side (the JAX
+  package's padded fit drops it; the port departs from it there);
 - on seeded chains (``testing_tools/assemble_cases``) of the small oval and
-  of the unclosed track, at horizons 1, about H/2 and H_max (the
-  full-horizon refit of PERF.md §7.1, kept as it is), at the tick's
+  of the unclosed track, at horizons 1, about H/2 and H_max, at the tick's
   ``p_max`` and 64 rows more, with one window row a row and one a
   scenario: the wrapper, ``assemble_action_kernel`` with and without the
   kernels and the plain version ``torch.equal`` on every output; the
   shared window form equal to the same rows with the window repeated; the
   JAX package's ``assemble_action_kernel`` on every row (``n_valid`` and
-  ``node_idx`` exact, x and y within 2 mm);
+  ``node_idx`` exact, x and y within 2 mm), except x and y at H_max, which
+  are held within 2 mm to the plain version refitted row by row with the
+  unpadded fit;
+- the fleet tick on the small oval, its scenarios on the layers whose
+  horizon is H_max: its trajectories within 2 mm of the same tick refitted
+  with the unpadded fit, and the assembly's ``full_horizon_rows`` counter
+  under ``cuda_graph.tracing()``;
 - the kernel route on stand-ins (meta tensors, a recording C entry point):
   the argument checks raise before any launch, the ``launches`` counter
   moves by one a call and the entry point gets the call's shape;
@@ -18,6 +28,8 @@ CPU, where it takes its plain version:
 """
 
 import ctypes
+import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +40,8 @@ import torch
 from graphbasedlocaltrajectoryplanner_tpu.planner import pathgen as jpg
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_assemble as ca
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_build as cb
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
+from graphbasedlocaltrajectoryplanner_torch.ops import splines as spl
 from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as tsc
 from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as tpg
 from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
@@ -38,6 +52,49 @@ from torch_port_common import carry, jax_small_oval, jax_unclosed
 TOL_POS = 2e-3
 ROWS = 8
 OUTPUTS = ("path", "n_valid", "node_idx", "coeffs")
+PADDED_FIT = ca._fit_clamped_chain_padded
+
+
+def _unpadded_fit(points, el, psi_s, psi_e, n_seg, H):
+    """The padded fit's rows refitted with ``splines.fit_clamped_chain``
+    on their own ``n_seg`` segments (segments past them as the padded fit
+    leaves them)."""
+    out = PADDED_FIT(points, el, psi_s, psi_e, n_seg, H).clone()
+    for r, n in enumerate(n_seg.tolist()):
+        out[r, :n] = spl.fit_clamped_chain(
+            points[r, :n + 1], psi_s[r], psi_e[r],
+            torch.clamp(el[r, :n], min=1e-9))
+    return out
+
+
+def _chains(H, n, rows=4):
+    """Seeded chains of ``n`` segments (2-5 m, headings wandering), padded
+    to H as the assembly pads them: the end point repeated, length 1."""
+    g = torch.Generator().manual_seed(1000 * H + n)
+    el = 2.0 + 3.0 * torch.rand((rows, n), generator=g)
+    ang = torch.cumsum(0.2 * (torch.rand((rows, n), generator=g) - 0.5), 1)
+    steps = torch.stack([torch.cos(ang), torch.sin(ang)], -1) * el[..., None]
+    pts = torch.cat([torch.zeros(rows, 1, 2), torch.cumsum(steps, 1)], 1)
+    psi_s = 0.1 * torch.randn(rows, generator=g) - math.pi / 2
+    psi_e = ang[:, -1] - math.pi / 2 + 0.1 * torch.randn(rows, generator=g)
+    points = torch.cat([pts, pts[:, -1:].expand(rows, H - n, 2)], 1)
+    el_pad = torch.cat([el, torch.ones(rows, H - n)], 1)
+    return pts, el, points, el_pad, psi_s, psi_e
+
+
+@pytest.mark.parametrize("H,n", [(H, n) for H in (6, 27)
+                                 for n in range(1, H + 1)],
+                         ids=lambda v: str(v))
+def test_padded_fit_is_the_unpadded_fit(H, n):
+    pts, el, points, el_pad, psi_s, psi_e = _chains(H, n)
+    rows = pts.shape[0]
+    got = ca._fit_clamped_chain_padded(points, el_pad, psi_s, psi_e,
+                                       torch.full((rows,), n), H)
+    assert got.shape == (rows, H, 4, 2)
+    ref = torch.stack([spl.fit_clamped_chain(pts[r], psi_s[r], psi_e[r],
+                                             el[r]) for r in range(rows)])
+    torch.testing.assert_close(got[:, :n], ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
 
 
 @pytest.fixture(scope="module")
@@ -114,10 +171,16 @@ def test_assemble_wrapper_is_the_plain_version(tracks, track, h_mode,
                                   np.asarray(jr["n_valid"]))
     np.testing.assert_array_equal(ref["node_idx"].numpy(),
                                   np.asarray(jr["node_idx"]))
+    oracle, what = np.asarray(jr["path"]), "JAX"
+    if h_mode == "full":            # the JAX package's refit drops a term
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ca, "_fit_clamped_chain_padded", _unpadded_fit)
+            oracle = ca.assemble_path_plain(*args)["path"].numpy()
+        what = "the unpadded fit"
     d = np.abs(ref["path"].numpy()[..., 0:2].astype(np.float64)
-               - np.asarray(jr["path"])[..., 0:2])
+               - oracle[..., 0:2])
     print(f"assemble {track} h={h_mode} p+{p_extra} shared={shared}: "
-          f"max |d x,y| = {d.max():.3g} m against JAX")
+          f"max |d x,y| = {d.max():.3g} m against {what}")
     assert d.max() <= TOL_POS
 
 
@@ -236,3 +299,37 @@ def test_fleet_tick_passes_window_rows_and_kernels(tracks, monkeypatch):
     assert tuple(calls_k[0][2].shape) == (8, lat.H_max + 1)
     for k in out_p:
         assert torch.equal(out_k[k], out_p[k]), k
+
+
+def test_fleet_tick_full_horizon_rows(tracks, monkeypatch):
+    """Scenarios on the small oval's H_max layers: the tick's paths are
+    those of the unpadded refit within 2 mm, every discrete output equal,
+    and the assembly counts its full-horizon rows under tracing only."""
+    lat = tracks["oval"]["lat"]
+    H = lat.H_max
+    scen = tsc.random_scenarios(lat, 48, seed=5, n_objects=1, device="cpu")
+    full = (lat.h_goal_for_start[scen.start_layer.long()] == H).nonzero()[:, 0]
+    assert len(full) >= 2
+    scen = dataclasses.replace(scen, **{
+        f.name: getattr(scen, f.name)[full[:4]]
+        for f in dataclasses.fields(scen)})
+    tick = tsc.make_batched_tick(lat, device="cpu")
+    out = tick(scen)
+    n_full = int((out["h_eff"][:, :4] == H).sum())     # the 4 assembled
+    assert n_full > 0
+    with monkeypatch.context() as mp:
+        mp.setattr(ca, "_fit_clamped_chain_padded", _unpadded_fit)
+        ref = tick(scen)
+    for k in ("valid", "h_eff", "n_valid"):
+        assert torch.equal(out[k], ref[k]), k
+    live = ref["valid"][..., None] & (
+        torch.arange(out["trajs"].shape[2]) < ref["n_valid"][..., None])
+    d = torch.where(live[..., None], (out["trajs"] - ref["trajs"]).abs(),
+                    0.0)[..., 0:3]
+    print(f"fleet tick, {n_full} full-horizon rows: max |d s,x,y| = "
+          f"{float(d.max()):.3g} m against the unpadded fit")
+    assert float(d.max()) <= TOL_POS
+    with cuda_graph.tracing() as counts:
+        assert torch.equal(tick(scen)["trajs"], out["trajs"])
+    assert {k: int(v) for k, v in counts.items()} == {
+        "full_horizon_rows": n_full}

@@ -32,7 +32,7 @@ from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
     cuda_parity, profile_sqp)
 from tools import pallas_parity
 
-from torch_port_common import carry, jax_small_oval
+from torch_port_common import carry, jax_refit_repaired, jax_small_oval
 
 EXACT = ("valid", "h_eff", "cost", "n_valid", "case_a", "relabel", "em_base")
 TOL_POS, TOL_VX, TOL_VX_SQP = 2e-3, 0.02, 0.05
@@ -146,15 +146,19 @@ def test_bench_scenarios_are_the_root_bench_s(oval):
 ], ids=["fb", "fb_3opp_o16", "sqp"])
 def test_bench_ticks_match_jax(oval, sections, tick_kw, tol_vx):
     """The port's plain ticks on the bench's scenarios (B=4) against the
-    JAX package's XLA tick (``use_pallas=False``), one compile a shape."""
+    JAX package's XLA tick (``use_pallas=False``), one compile a shape;
+    the JAX tick with the port's full-horizon refit
+    (``jax_refit_repaired``: the multi-opponent batch has a scenario on a
+    full-horizon layer)."""
     ja, lat = oval
     jt = jsc.make_batched_tick(ja, use_pallas=False, **tick_kw)
     tt = tsc.make_batched_tick(lat, device="cpu", **tick_kw)
-    for section, batch, kw in ROOT_BENCH_SCENARIOS:
-        if section not in sections or batch != 4:
-            continue
-        js, ts = _scenario_pair(ja, lat, section, batch, kw)
-        jo, to = jt(js), tt(ts)
+    with jax_refit_repaired():
+        outs = [(section,) + _scenario_pair(ja, lat, section, batch, kw)
+                for section, batch, kw in ROOT_BENCH_SCENARIOS
+                if section in sections and batch == 4]
+        outs = [(section, jt(js), tt(ts)) for section, js, ts in outs]
+    for section, jo, to in outs:
         for k in EXACT + (("qp_status",) if tick_kw else ()):
             np.testing.assert_array_equal(np.asarray(jo[k]), to[k].numpy(),
                                           err_msg=f"{section}: {k}")

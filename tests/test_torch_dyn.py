@@ -6,7 +6,9 @@ when the drop begins, below the schedule's 24 m/s, and only the deeper
 drop fires the fb brake prefix.  The JAX package's facade in closed loop,
 the port's ``GraphLTPL(device="cpu")`` on its recorded inputs
 (``testing_tools/closed_loop.py``); action keys and node chains equal on
-every tick, trajectories within 2 mm and 0.02 m/s."""
+every tick, trajectories within 2 mm and 0.02 m/s.  The JAX facade runs
+with the port's full-horizon refit (``jax_refit_repaired`` of
+``torch_port_common``), since the drive passes full-horizon layers."""
 
 import os
 
@@ -20,6 +22,8 @@ from graphbasedlocaltrajectoryplanner_torch.planner.facade import GraphLTPL
 from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
     closed_loop as cl)
 from parity import dyn_schedule as dynsch
+
+from torch_port_common import jax_refit_repaired
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TICKS_DYN = 140
@@ -61,7 +65,9 @@ def test_facade_dynamic_parameter_schedule(tmp_path, monkeypatch):
     objs = cl.slow_opponent(np.asarray(lat.raceline), np.asarray(lat.normvec),
                             np.asarray(lat.s_rl))
     zones = cl.left_half_zone(np.asarray(lat.nodes_in_layer))
-    rec_j = cl.drive(j, TICKS_DYN, pos, heading, objs, zones, vel_kw=_dyn_kw)
+    with jax_refit_repaired():      # the drive passes full-horizon layers
+        rec_j = cl.drive(j, TICKS_DYN, pos, heading, objs, zones,
+                         vel_kw=_dyn_kw)
     ltpl = GraphLTPL(pd, device="cpu", log_to_file=False)
     ltpl.graph_init()
     rec_t = cl.drive(ltpl, TICKS_DYN, pos, heading, zones=zones,

@@ -45,7 +45,8 @@ from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
 from graphbasedlocaltrajectoryplanner_torch.utils.config import OnlineConfig
 
 from test_torch_graph import WRAPPERS, HostGuard, StandInCuda, _Record
-from torch_port_common import UNCLOSED_CSV, carry, jax_small_oval
+from torch_port_common import (UNCLOSED_CSV, carry, jax_refit_repaired,
+                               jax_small_oval)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OFFLINE_INI = os.path.join(ROOT, "params", "ltpl_config_offline.ini")
@@ -165,6 +166,8 @@ def tmp(tmp_path_factory):
 
 
 def _jax_drive(tmp, name):
+    """The JAX facade's drive, with the port's full-horizon refit
+    (``jax_refit_repaired``: the oval drives pass full-horizon layers)."""
     track, online, layer, n, _ = DRIVES[name]
     j = JaxGraphLTPL(_path_dict(tmp, track, online), log_to_file=False)
     j.graph_init()
@@ -175,7 +178,9 @@ def _jax_drive(tmp, name):
         objs = cl.slow_opponent(np.asarray(lat.raceline),
                                 np.asarray(lat.normvec), np.asarray(lat.s_rl))
         zones = cl.left_half_zone(np.asarray(lat.nodes_in_layer))
-    return pos, heading, zones, cl.drive(j, n, pos, heading, objs, zones)
+    with jax_refit_repaired():
+        return pos, heading, zones, cl.drive(j, n, pos, heading, objs,
+                                             zones)
 
 
 def check_drive(tmp, compiled, name):

@@ -141,13 +141,39 @@ def test_traced_graph_is_the_untraced_one_plus_event_nodes(
     with cuda_graph.tracing():
         traced = tick(scen)
     g0, g1 = stand_in.made
-    assert [op[0] for op in g0.ops] == [op[0] for op in g1.ops
-                                        if not _is_event(op)]
     call = list(tick.graphs.values())[1]
     assert call.traced
+    # the traced graph's operators less its event records are the
+    # untraced graph's and the assembly's counter: its rows at n_seg == H
+    # compared, summed and added to the graph's total
+    ops = [op for op in g1.ops if not _is_event(op)]
+    total = call.counts["full_horizon_rows"]
+    at = [i for i, op in enumerate(ops) if op[1] and op[1][0] is total]
+    assert len(at) == 1 and at[0] >= 2
+    i = at[0]
+    assert [str(op[0]) for op in ops[i - 2:i + 1]] == [
+        "aten.eq.Scalar", "aten.sum.default", "aten.add_.Tensor"]
+    del ops[i - 2:i + 1]
+    assert [op[0] for op in g0.ops] == [op[0] for op in ops]
     assert g1.node_types.count(EVENT_RECORD) == 2 * len(call.spans) + 2
+    reps = tick.report()["graphs"]
+    assert "full_horizon_rows" not in reps[0]
+    assert reps[1]["full_horizon_rows"] == int(
+        (traced["h_eff"][:, :4] == lat.H_max).sum())
     for k, v in eager(scen).items():
         assert torch.equal(plain[k], v) and torch.equal(traced[k], v), k
+
+
+def test_count_counts_inside_tracing_only():
+    """``count`` computes nothing outside ``tracing()``; an eager call's
+    counts go to the innermost block's totals."""
+    cuda_graph.count("rows", lambda: 1 / 0)
+    with cuda_graph.tracing() as outer:
+        cuda_graph.count("rows", lambda: torch.ones(3))
+        with cuda_graph.tracing() as inner:
+            cuda_graph.count("rows", lambda: torch.ones(4))
+        cuda_graph.count("rows", lambda: torch.ones(2))
+    assert int(outer["rows"]) == 5 and int(inner["rows"]) == 4
 
 
 def test_tracing_captures_its_own_signature_and_off_replays_the_first(
