@@ -26,8 +26,11 @@ unclosed Monteblanco lattice with the port's builder, then:
    one epilogue a fb tick, timed among the fleet's and summed beside their
    bytes bound) on every seeded case of ``testing_tools/velstage_cases``
    under both backends, output memory spoiled, bits compared (the follow
-   path's stopping distance within its stated bound), and the velocity
-   scans'
+   path's stopping distance within its stated bound), the arc-length
+   projections (``csrc/projection.cu``, three launches a fleet tick, timed
+   among the fleet's and summed beside their bound) on every seeded case
+   of ``testing_tools/projection_cases`` and on the sqp fleet tick's
+   recorded calls, bits compared, and the velocity scans'
    branch-free division and square root (``csrc/ieee_fast.cuh``) against
    the plain operators on every float32 (the root, dividends over a few
    divisors) and on random pairs (``testing_tools/ieee_fast_check``);
@@ -238,10 +241,13 @@ PEAK_F32_OPS_S = 67e12
 # cycle, 132 SMs x 128 lanes x 1.98 GHz
 PEAK_F32_NOFMA_OPS_S = 132 * 128 * 1.98e9
 FLEET = ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan",
-         "assemble", "prefix_sum", "vel_stage_level", "vel_stage_epilogue")
+         "assemble", "prefix_sum", "vel_stage_level", "vel_stage_epilogue",
+         "projection")
 # the fb stage's glue kernels, which a smoothed profile (filt_window > 1)
 # does not take
 GLUE = ("vel_stage_level", "vel_stage_epilogue")
+# kernels whose float outputs are held bit for bit (signed zeros, NaN)
+BITS = ("prefix_sum", "projection")
 # every kernel as (name, wrapper, source, JAX site replaced) from the
 # package's registry, the fleet tick's first (the next in the dense-window
 # search and the SQP backend)
@@ -386,6 +392,14 @@ def _cost_prefix(args, kw, out):
     return rows * n * 4 + _nbytes(out), rows * adds
 
 
+def _cost_projection(args, kw, out):
+    """``testing_tools/projection_cases.work``: the polyline, positions and
+    outputs once, operations a (position, vertex) pair and a tail."""
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        projection_cases)
+    return projection_cases.work(args, out)
+
+
 def _cost_velstage(name, args, kw, out):
     """``testing_tools/velstage_cases.work``: bytes read and written once,
     operations a written element."""
@@ -415,10 +429,13 @@ def _strided_clone(x):
 
 
 def _as_tuple(out):
-    """A kernel's outputs as a tuple (an assembly's dict in its order)."""
+    """A kernel's outputs as a flat tuple (an assembly's dict in its order,
+    the projections' ``((s, (idx_a, idx_b)), ...)`` set by set)."""
     if isinstance(out, dict):
         return tuple(out.values())
-    return out if isinstance(out, tuple) else (out,)
+    if isinstance(out, tuple):
+        return tuple(x for o in out for x in _as_tuple(o))
+    return (out,)
 
 
 def _call_shape(name, a):
@@ -426,6 +443,9 @@ def _call_shape(name, a):
     chains' for an assembly)."""
     if name == "vel_stage_level":
         return f"level {a[0]}, " + "x".join(str(d) for d in a[1].shape)
+    if name == "projection":
+        return "x".join(str(d) for d in a[0].shape) + " polyline, sets " \
+            + ", ".join("x".join(str(d) for d in p.shape[:-1]) for p in a[1])
     return "x".join(str(d) for d in a[2 if name == "assemble" else 0].shape)
 
 
@@ -495,6 +515,8 @@ def _cost(name, a, kw, out):
         return _cost_assemble(a, out)
     if name == "prefix_sum":
         return _cost_prefix(a, kw, out)
+    if name == "projection":
+        return _cost_projection(a, kw, out)
     if name in GLUE:
         return _cost_velstage(name, a, kw, out)
     return _cost_vel(a, out, name == "vel_scan_cgg")
@@ -533,8 +555,9 @@ def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
         print(f"kernel {name} {where}: ego_stop_d max|kernel-plain|="
               f"{ego[0]:.3g} m, {100 * ego[1]:.3g} % of its bound")
     for x, y in zip(ko_t, po_t):
-        _check(name in GLUE or (x.shape == y.shape and torch.equal(x, y)
-               and (name != "prefix_sum" or _same_bits(x, y))),
+        _check(name in GLUE or (x.shape == y.shape
+               and (_same_bits(x, y) if name in BITS
+                    and x.is_floating_point() else torch.equal(x, y))),
                f"{name} {where}: not bit-equal, max |kernel - plain| {err}")
     ms = _device_ms(lambda: kern(*a, **kw))
     wrapper_ms = _median_ms(lambda: kern(*a, **kw), 30)
@@ -548,6 +571,7 @@ def held_and_timed(name, where, kern, plain, a, kw, plain_reps=0):
             a[1].shape[0] * a[1].shape[1] if name == "vel_stage_level" else
             a[0].shape[0] * a[0].shape[1] if name == "vel_stage_epilogue" else
             a[0].numel() // a[0].shape[-1] if name == "prefix_sum" else
+            sum(p.numel() // 2 for p in a[1]) if name == "projection" else
             a[0].shape[0])
     print(f"kernel {name} {where} {rows} rows [{shape}]: "
           f"max|kernel-plain|={err:.3g} (bit-equal) kernel {ms:.4f} ms on "
@@ -814,6 +838,43 @@ def ragged_prefix_sum(oval, scen):
     return n_calls, len(calls)
 
 
+def ragged_projection(oval, scen):
+    """The projection kernel against its plain version, equal bits, on
+    every seeded case of ``testing_tools/projection_cases`` (ties, wraps,
+    clamps, equal angles, padded rows, a polyline longer than the kernel
+    stages, a NaN position), output memory spoiled before each call; then
+    the three calls of one sqp fleet tick (eager body) at batch 1024 in
+    their own layout.  Returns the numbers of calls compared."""
+    from graphbasedlocaltrajectoryplanner_torch.ops import cuda_projection
+    from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        profile_stages)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        projection_cases as pc)
+
+    def held(label, a, kw):
+        want = cuda_projection.get_s_coords_plain(*a, **kw)
+        for x in pc.flat(want):
+            _spoil(x.shape, x.dtype)
+        before = cuda_projection.get_s_coords.launches
+        got = cuda_projection.get_s_coords(*a, **kw)
+        torch.cuda.synchronize()
+        ok, what = pc.compare(got, want)
+        _check(ok and cuda_projection.get_s_coords.launches == before + 1,
+               f"ragged projection {label}: {what or 'not launched'}")
+    for name in pc.CASES:
+        line, pos, s, closed = pc.case(name, "cuda")
+        held(name, (line, pos, s), dict(closed=closed))
+    tick = sc.make_batched_tick(oval, device="cuda",
+                                **profile_stages.sqp_options(oval))
+    _, calls = pc.recorded(lambda: tick.__wrapped__(scen))
+    _check(len(calls) == 3, f"sqp tick: {len(calls)} projection calls, "
+                            "not 3")
+    for a, kw in calls:
+        held(f"sqp tick call {tuple(a[0].shape)}", a, kw)
+    return len(pc.CASES), len(calls)
+
+
 def dense_window_inputs(lat, scen):
     """``(win_args, start4, shrink4)`` of the dense-window search over a
     fleet's scenarios: the arguments of ``plan_window_dense`` (no zone,
@@ -1027,12 +1088,14 @@ class Recorder:
 
             def rec(*a, _o=orig, _n=name, **k):
                 if self.on:
-                    # the prefix sums read strided rows as they are (the
-                    # other wrappers make their inputs contiguous)
-                    copy = (_strided_clone if _n == "prefix_sum"
-                            else torch.clone)
+                    # the prefix sums and the projections read strided
+                    # inputs as they are (the other wrappers make theirs
+                    # contiguous); the projections' position sets a tuple
+                    copy = (_strided_clone if _n in BITS else torch.clone)
                     self.calls[_n].append((
-                        tuple(copy(x) if torch.is_tensor(x) else x
+                        tuple(copy(x) if torch.is_tensor(x) else
+                              tuple(copy(y) for y in x)
+                              if isinstance(x, tuple) else x
                               for x in a), dict(k)))
                 return _o(*a, **k)
             rec.launches = 0
@@ -1099,9 +1162,9 @@ def options_phase(oval, scen, card, wrapper, fb_prof):
         (f"p_max={p_big}", dict(p_max=p_big), exact, "trajs", fleet5),
         ("until=assembly", dict(until="assembly"),
          ("n_valid", "cost", "h_eff", "valid"), "paths",
-         {"hit_slab", "window_dp", "backtrace", "assemble"}),
+         {"hit_slab", "window_dp", "backtrace", "assemble", "projection"}),
         ("until=decide", dict(until="decide"), ("src", "h_eff", "valid"),
-         "h_eff", {"hit_slab", "window_dp"}),
+         "h_eff", {"hit_slab", "window_dp", "projection"}),
     ]
     # the launches counted on the eager body (a replay runs no Python); the
     # compiled ticks of these options are phase 12's
@@ -1130,7 +1193,7 @@ def options_phase(oval, scen, card, wrapper, fb_prof):
         out_k, counts = _run_counted(wrapper, lambda: tick_k(scen))
     _check(all(counts[k] > 0 for k in ("hit_slab", "window_dp", "backtrace",
                                        "vel_scan", "admm_vel",
-                                       "vel_stage_epilogue")),
+                                       "vel_stage_epilogue", "projection")),
            f"options sqp p_max={p_big}: a kernel was not launched: {counts}")
     out_p = tick_p(scen)
     torch.cuda.synchronize()
@@ -1787,13 +1850,15 @@ FLEET_NAMES = (("hit_slab", "hit_slab", 1), ("window_dp", "window_dp", 1),
                ("assemble", "assemble_kernel", 1),
                ("prefix_sum", "prefix_sum_kernel", 3),
                ("vel_stage_level", "vel_stage_level_kernel", 4),
-               ("vel_stage_epilogue", "vel_stage_epilogue_kernel", 1))
+               ("vel_stage_epilogue", "vel_stage_epilogue_kernel", 1),
+               ("projection", "projection_kernel", 3))
 # words of the kernels' device names counted in a replay's profile (the
 # two velocity-scan instances by their first template argument, CGG)
 REPLAY_WORDS = ("hit_slab", "window_dp", "walk_kernel",
                 "vel_scan_kernel<true", "vel_scan_kernel<false", "admm_vel",
                 "assemble_kernel", "prefix_sum_kernel",
-                "vel_stage_level_kernel", "vel_stage_epilogue_kernel")
+                "vel_stage_level_kernel", "vel_stage_epilogue_kernel",
+                "projection_kernel")
 
 
 def _tick_ms(fn, n):
@@ -2112,7 +2177,8 @@ def compiled_facade_phase(card, store, wrapper):
             ltpl_c, n, pos, heading, objs, zones,
             on_tick=lambda t: sigs.append(h.signatures())), eager=False)
         t_c = time.perf_counter() - t0
-        path_kernels = FACADE + (("admm_vel",) if "sqp" in label else ())
+        path_kernels = FACADE + (("admm_vel",) if "sqp" in label else ()) \
+            + (("projection",) if objs is not None else ())
         _check(all(captured[k] > 0 for k in path_kernels),
                f"compiled facade {label}: a kernel of the path is in no "
                f"captured graph: {captured}")
@@ -2217,7 +2283,8 @@ SHARDED_WORDS = dict(hit_slab="hit_slab", window_dp="window_dp",
                      assemble="assemble_kernel",
                      prefix_sum="prefix_sum_kernel",
                      vel_stage_level="vel_stage_level_kernel",
-                     vel_stage_epilogue="vel_stage_epilogue_kernel")
+                     vel_stage_epilogue="vel_stage_epilogue_kernel",
+                     projection="projection_kernel")
 
 
 def _same_sharded(label, got, ref):
@@ -2513,8 +2580,8 @@ def main():
     from graphbasedlocaltrajectoryplanner_torch.models import track as tt
     from graphbasedlocaltrajectoryplanner_torch.ops import (
         cuda_admm, cuda_assemble, cuda_backtrace, cuda_build, cuda_collision,
-        cuda_graph, cuda_minplus, cuda_prefix, cuda_velocity, cuda_velstage,
-        cuda_window)
+        cuda_graph, cuda_minplus, cuda_prefix, cuda_projection,
+        cuda_velocity, cuda_velstage, cuda_window)
     from graphbasedlocaltrajectoryplanner_torch.ops import search as srch
     from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
@@ -2535,7 +2602,7 @@ def main():
                 cuda_backtrace=cuda_backtrace, cuda_velocity=cuda_velocity,
                 cuda_minplus=cuda_minplus, cuda_admm=cuda_admm,
                 cuda_assemble=cuda_assemble, cuda_prefix=cuda_prefix,
-                cuda_velstage=cuda_velstage)
+                cuda_velstage=cuda_velstage, cuda_projection=cuda_projection)
 
     def wrapper(path):
         m, f = path.split(".")
@@ -2610,6 +2677,7 @@ def main():
         "prefix_sum": cuda_prefix.blocked_cumsum_plain,
         "vel_stage_level": cuda_velstage.fb_level_plain,
         "vel_stage_epilogue": cuda_velstage.epilogue_plain,
+        "projection": cuda_projection.get_s_coords_plain,
     }
     stats = {}
     for name, path, src, repl in KERNELS[:len(FLEET)]:
@@ -2643,6 +2711,16 @@ def main():
           f"{100 * g_bound / g['ms']:.1f} % of it; plain {g['plain_ms']:.4f} "
           f"ms", flush=True)
 
+    j = stats["projection"]
+    _check(len(calls["projection"]) == 3, f"fb tick: "
+           f"{len(calls['projection'])} projection calls, not 3")
+    print(f"kernel projection fb tick: {len(calls['projection'])} calls "
+          f"{j['ms']:.5f} ms on the device ({j['wrapper_ms']:.4f} ms of "
+          f"wrapper calls), bound {j['bound_ms']:.5f} ms ({j['bound_by']}: "
+          f"{j['bytes']} B, {j['ops']} ops), "
+          f"{100 * j['bound_ms'] / j['ms']:.1f} % of it; plain "
+          f"{j['plain_ms']:.4f} ms", flush=True)
+
     n_ragged = ragged_vel_scans(cuda_velocity.CHUNK)
     print(f"ragged shapes: vel_scan and vel_scan_cgg bit-equal to the plain "
           f"version on {n_ragged} seeded calls (R in {vc.RAGGED_R}, T in "
@@ -2667,6 +2745,12 @@ def main():
     print(f"ragged shapes: prefix_sum bit-equal (bits) to the plain version "
           f"on {n_p} calls (row lengths 1-5,000, strided, with and without "
           f"the leading zero) and on the sqp fleet tick's {n_sqp} calls, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    n_j, n_sqp = ragged_projection(oval, scen1)
+    print(f"ragged shapes: projection bit-equal (bits) to the plain version "
+          f"on {n_j} seeded cases (testing_tools/projection_cases) and on "
+          f"the sqp fleet tick's {n_sqp} calls, in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     n_g, ego = ragged_velstage()
@@ -2870,7 +2954,6 @@ def main():
     plog = logging.getLogger("local_trajectory_logger")
     plog.addHandler(logging.FileHandler(os.path.join(store, "planner.log")))
     plog.setLevel(logging.INFO)
-    facade_targets = {name: targets[name] for name in FACADE}
     facade_plain = {
         "hit_slab": cuda_collision.hit_slab_plain,
         "window_dp": cuda_window.fused_window_dp_plain,
@@ -2878,6 +2961,7 @@ def main():
         "vel_scan": velops.stacked_vel_scan,
         "assemble": cuda_assemble.assemble_path_plain,
         "prefix_sum": cuda_prefix.blocked_cumsum_plain,
+        "projection": cuda_projection.get_s_coords_plain,
     }
     tracks = [
         ("oval", "oval", FACADE_TICKS_OVAL, 0, (15,)),
@@ -2886,8 +2970,8 @@ def main():
          FACADE_TICKS_UNCLOSED, FACADE_START_LAYER_UNCLOSED, (40, 95)),
     ]
     facade_counts = {}
-    facade_ms = {name: 0.0 for name in FACADE}
-    facade_wrapper_ms = {name: 0.0 for name in FACADE}
+    facade_ms = {name: 0.0 for name in facade_plain}
+    facade_wrapper_ms = {name: 0.0 for name in facade_plain}
     for tname, track, n_ticks, start_layer, rec_ticks in tracks:
         pd = {"globtraj_input_path": track,
               "graph_store_path": os.path.join(store, f"{tname}.npz"),
@@ -2912,9 +2996,12 @@ def main():
         if tname == "oval":
             objs = cl.slow_opponent(h.np_raceline, h.np_normvec, h.np_s_rl)
             zones = cl.left_half_zone(h.np_nodes_in_layer)
+        # the opponent step (the projection onto the fine raceline) runs
+        # on the ticks that follow an object
+        path_k = FACADE + (("projection",) if objs is not None else ())
         for _, path, *_ in KERNELS:
             wrapper(path).launches = 0
-        recorder = Recorder(facade_targets)
+        recorder = Recorder({name: targets[name] for name in path_k})
         recorder.on = False
 
         def on_tick(tick, _r=recorder, _ticks=rec_ticks):
@@ -2929,8 +3016,10 @@ def main():
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t0
         counts = {name: wrapper(path).launches for name, path, *_ in KERNELS}
-        _check(all(counts[k] > 0 for k in FACADE),
-               f"facade {tname}: a kernel was not launched: {counts}")
+        _check(all(counts[k] > 0 for k in path_k)
+               and counts["projection"] <= n_ticks,
+               f"facade {tname}: a kernel was not launched (or projection "
+               f"more than once a tick): {counts}")
         t0 = time.perf_counter()
         rec_p = cl.drive(ltpl_p, n_ticks, pos, heading, zones=zones,
                          replay=rec_k)
@@ -2959,8 +3048,8 @@ def main():
 
         # every kernel call of the recorded ticks against its plain version
         n_inf = 0
-        for name in FACADE:
-            kern = getattr(*facade_targets[name])
+        for name in path_k:
+            kern = getattr(*targets[name])
             _check(recorder.calls[name],
                    f"facade {tname}: no {name} call recorded")
             for a, kw in recorder.calls[name]:
@@ -2976,7 +3065,7 @@ def main():
                 if name == "vel_scan":
                     n_inf += int(torch.isinf(a[7]).any(dim=1).sum())
                 for x, y in zip(ko_t, po_t):
-                    _check(torch.equal(x, y) and (name != "prefix_sum"
+                    _check(torch.equal(x, y) and (name not in BITS
                                                   or _same_bits(x, y)),
                            f"facade {name}: not "
                            f"bit-equal, max |kernel - plain| {err}")

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("hit_slab", "window_dp", "backtrace", "vel_scan", "minplus",
-           "admm_vel", "assemble", "prefix_sum", "vel_stage")
+           "admm_vel", "assemble", "prefix_sum", "vel_stage", "projection")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
@@ -100,6 +100,8 @@ _ENTRY = {
     # ops/cuda_velstage.StageArgs by pointer
     "vel_stage": ("vel_stage_level_launch", [_P, _P]),
     "vel_stage_epilogue": ("vel_stage_epilogue_launch", [_P, _P]),
+    # ops/cuda_projection.ProjArgs by pointer
+    "projection": ("projection_launch", [_P, _P]),
 }
 # the source of an entry point named otherwise
 _SOURCE_OF = {"vel_stage_epilogue": "vel_stage"}
@@ -159,7 +161,10 @@ KERNEL_WRAPPERS = dict(
                            _JAX + "planner/velplan.py:592"),
     vel_stage_epilogue=Kernel("cuda_velstage.epilogue",
                               _SRC + "vel_stage.cu",
-                              _JAX + "planner/velplan.py:772"))
+                              _JAX + "planner/velplan.py:772"),
+    # no Pallas kernel: the JAX package's projections are get_s_coord in XLA
+    projection=Kernel("cuda_projection.get_s_coords", _SRC + "projection.cu",
+                      _JAX + "ops/projection.py:36"))
 
 
 def wrappers() -> dict:

@@ -27,9 +27,9 @@ from graphbasedlocaltrajectoryplanner_torch import resolve_device
 from graphbasedlocaltrajectoryplanner_torch.models.lattice import Lattice
 from graphbasedlocaltrajectoryplanner_torch.ops import collision as col
 from graphbasedlocaltrajectoryplanner_torch.ops import dynshift
-from graphbasedlocaltrajectoryplanner_torch.ops import projection as proj
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_backtrace
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_projection
 from graphbasedlocaltrajectoryplanner_torch.parallel import spatial
 from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
 from graphbasedlocaltrajectoryplanner_torch.planner import velplan as vp
@@ -336,6 +336,8 @@ def scenario_tick(lat: Lattice, scen: Scenario,
         machines = default_machines(dev)
     if p_max is None:
         p_max = default_p_max(lat)
+    project = (cuda_projection.get_s_coords if kernels
+               else cuda_projection.get_s_coords_plain)
     if precomputed is None:
         if zone_block is None:
             zone_block = torch.zeros((lat.L, lat.N), dtype=torch.bool,
@@ -362,13 +364,12 @@ def scenario_tick(lat: Lattice, scen: Scenario,
         # const_path is the exclusive prefix; the reference's ">= 2 rows" check
         # is const_n >= 1 here
         have_const = scen.const_n >= 1
-        s_start, _ = proj.get_s_coord(lat.raceline, scen.pos_est, lat.s_rl,
-                                      closed=True)
+        # the ego position, the start node and every object slot on the
+        # raceline, s_objs (B, O) (one launch with the kernels)
         start_pos = lat.node_pos[start_layer, start_node]           # (B, 2)
-        s_end, _ = proj.get_s_coord(lat.raceline, start_pos, lat.s_rl,
-                                    closed=True)
-        s_objs, _ = proj.get_s_coord(lat.raceline, scen.obj_pos, lat.s_rl,
-                                     closed=True)                   # (B, O)
+        (s_start, _), (s_end, _), (s_objs, _) = project(
+            lat.raceline, (scen.pos_est, start_pos, scen.obj_pos), lat.s_rl,
+            closed=True)
         s_start_, s_end_ = s_start[:, None], s_end[:, None]
         in_seg = torch.where(s_start_ <= s_end_,
                              (s_objs >= s_start_) & (s_objs <= s_end_),
@@ -557,12 +558,13 @@ def scenario_tick(lat: Lattice, scen: Scenario,
         red4 = (h4 != h_goal[:, None]) | open_goal_end[:, None]
         # object distance along the follow slot's spliced path relative to the
         # ego projection (its leading-zero s array, of the four slots' s
-        # arrays that the velocity stage reads too)
+        # arrays that the velocity stage reads too); with the kernels both
+        # positions in one launch, each row read once
         s4 = vp._cumsum0(paths_full[..., 4], kernels=kernels)       # (B,4,P)
         path_f = paths_full[:, pg.SLOT_FOLLOW]                      # (B,P,5)
         s_arr_f = s4[:, pg.SLOT_FOLLOW]
-        s_obj, _ = proj.get_s_coord(path_f[..., 0:2], c_obj_pos, s_arr_f)
-        s_ego, _ = proj.get_s_coord(path_f[..., 0:2], scen.pos_cut, s_arr_f)
+        (s_obj, _), (s_ego, _) = project(path_f[..., 0:2],
+                                         (c_obj_pos, scen.pos_cut), s_arr_f)
         obj_dist = torch.where(follow_target, s_obj - s_ego, 0.0)
         vc_full = torch.zeros((B, P_full), dtype=torch.float32, device=dev)
         vc_full[:, :C_PAD] = scen.vel_course

@@ -21,9 +21,9 @@ import torch
 
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_graph
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_prefix
+from graphbasedlocaltrajectoryplanner_torch.ops import cuda_projection
 from graphbasedlocaltrajectoryplanner_torch.ops import cuda_velstage as vstage
 from graphbasedlocaltrajectoryplanner_torch.ops import dynshift
-from graphbasedlocaltrajectoryplanner_torch.ops import projection as proj
 from graphbasedlocaltrajectoryplanner_torch.ops import qp
 from graphbasedlocaltrajectoryplanner_torch.ops import velocity as velops
 
@@ -67,8 +67,10 @@ def opponent_summary(glob_rl, glob_el, obj_pos, v_obj, dyn_model_exp,
     :returns: (opp_stop_dist (B,), roll_vel (B, f_cap), roll_el (B, f_cap),
                roll_cum (B, f_cap))."""
     F = glob_rl.shape[0]
-    _, (idx_a, _) = proj.get_s_coord(glob_rl[:, 1:3], obj_pos, glob_rl[:, 0],
-                                     closed=True)
+    project = (cuda_projection.get_s_coords if kernels
+               else cuda_projection.get_s_coords_plain)
+    ((_, (idx_a, _)),) = project(glob_rl[:, 1:3], (obj_pos,), glob_rl[:, 0],
+                                 closed=True)
     start = torch.remainder(idx_a, F - 1)
     # enough wrap copies that start (< F-1) + f_cap rows always exist
     n_tiles = 1 + -(-f_cap // (F - 1))

@@ -30,7 +30,9 @@ Kernel gates, each ``torch.equal`` (bit-equal) to the plain version:
     the JAX gate leaves out (no production path there runs a Pallas kernel
     for them); ``prefix_sum`` also on a seeded strided case of rows of
     4,097 (every level of its recursion, signed zeros), its outputs' bits
-    compared too;
+    compared too; ``projection`` (``ops/cuda_projection``) on the three
+    calls of that tick and on the seeded cases of
+    ``testing_tools/projection_cases``, bits compared;
   * ``vel_stage_level`` and ``vel_stage_epilogue`` (``ops/cuda_velstage``)
     on the four level calls and the epilogue call of the fb fleet tick at
     ``batch`` and the epilogue call of the sqp tick, bits compared too,
@@ -121,11 +123,13 @@ def _held(name, run_kernel, plain_out, dev) -> dict:
 
 
 def _clone(x):
-    """``x`` with every tensor in it (also in a dict) cloned."""
+    """``x`` with every tensor in it (also in a dict or a tuple) cloned."""
     if torch.is_tensor(x):
         return x.clone()
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
     return x
 
 
@@ -179,12 +183,24 @@ def _with_bits(fn, cases):
     return tuple(outs)
 
 
+def _bits_of(fn, cases):
+    """Each case's outputs of the projections' ``fn``, floats as their
+    bits (NaN and signed zeros compared too)."""
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        projection_cases as pc)
+    return tuple(x.view(torch.int32) if x.is_floating_point() else x
+                 for a, kw in cases for x in pc.flat(fn(*a, **kw)))
+
+
 def check_window_kernels(lat, batch: int, dev) -> dict:
-    """``hit_slab``, ``window_dp``, ``minplus``, ``admm_vel``, ``assemble``
-    and ``prefix_sum`` on one seeded batch (seed 11, two opponents)."""
+    """``hit_slab``, ``window_dp``, ``minplus``, ``admm_vel``, ``assemble``,
+    ``prefix_sum`` and ``projection`` on one seeded batch (seed 11, two
+    opponents)."""
     from graphbasedlocaltrajectoryplanner_torch.ops import (
         cuda_admm, cuda_assemble, cuda_collision, cuda_minplus, cuda_prefix,
-        cuda_window, cuda_graph, qp)
+        cuda_projection, cuda_window, cuda_graph, qp)
+    from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+        projection_cases as pc)
     from graphbasedlocaltrajectoryplanner_torch.parallel import scenario as sc
     from graphbasedlocaltrajectoryplanner_torch.planner import pathgen as pg
 
@@ -224,7 +240,8 @@ def check_window_kernels(lat, batch: int, dev) -> dict:
     calls = _recorded_calls(lambda: tick(scen),
                             [(cuda_admm, "admm_vel"),
                              (cuda_assemble, "assemble_path"),
-                             (cuda_prefix, "blocked_cumsum")])
+                             (cuda_prefix, "blocked_cumsum"),
+                             (cuda_projection, "get_s_coords")])
     for name, got in calls.items():
         if not got:
             raise RuntimeError(f"the sqp tick made no {name} call")
@@ -251,6 +268,13 @@ def check_window_kernels(lat, batch: int, dev) -> dict:
         "prefix_sum", lambda: _with_bits(cuda_prefix.blocked_cumsum, cases),
         _with_bits(cuda_prefix.blocked_cumsum_plain, cases), dev)
     rep["prefix_sum"]["calls_in_tick"] = len(calls["blocked_cumsum"])
+    cases = calls["get_s_coords"] + [
+        ((line, pos, s), dict(closed=closed)) for line, pos, s, closed in (
+            pc.case(name, dev) for name in pc.CASES)]
+    rep["projection"] = _held(
+        "projection", lambda: _bits_of(cuda_projection.get_s_coords, cases),
+        _bits_of(cuda_projection.get_s_coords_plain, cases), dev)
+    rep["projection"]["calls_in_tick"] = len(calls["get_s_coords"])
     return rep
 
 

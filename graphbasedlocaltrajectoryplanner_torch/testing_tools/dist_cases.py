@@ -86,7 +86,8 @@ SEED_DP, SEED_COMPOSED, SEED_SPATIAL = 0, 1, 3
 EXACT = ("valid", "h_eff", "cost", "n_valid", "case_a", "relabel", "em_base")
 # the kernels each case launches on the card (b and c_tick: the spatial
 # window DP in place of the window-DP kernel)
-_GLUE = ("vel_stage_level", "vel_stage_epilogue")
+# every tick: the glue kernels and the projections (scenario_tick)
+_GLUE = ("vel_stage_level", "vel_stage_epilogue", "projection")
 CASE_KERNELS = {
     "a": ("hit_slab", "window_dp", "backtrace", "vel_scan_cgg", "vel_scan",
           "assemble", "prefix_sum") + _GLUE,

@@ -19,6 +19,8 @@ from graphbasedlocaltrajectoryplanner_torch.ops import search as tsearch
 from graphbasedlocaltrajectoryplanner_torch.ops import splines as tspl
 from graphbasedlocaltrajectoryplanner_torch.ops import velocity as tvel
 from graphbasedlocaltrajectoryplanner_torch.planner import velplan as tvp
+from graphbasedlocaltrajectoryplanner_torch.testing_tools import (
+    projection_cases as pc)
 
 t = torch.from_numpy
 
@@ -61,23 +63,30 @@ def test_spline_fits_match_jax():
                                        atol=1e-5)
 
 
-@pytest.mark.parametrize("closed", [True, False])
-def test_get_s_coord_matches_jax(closed):
-    rng = np.random.default_rng(2)
-    ang = np.linspace(0, 2 * np.pi, 41)[:-1]
-    line = np.stack([80 * np.cos(ang), 40 * np.sin(ang)], 1) \
-        .astype(np.float32)
-    s_arr = np.concatenate([[0], np.cumsum(np.hypot(
-        *np.diff(line, axis=0).T))]).astype(np.float32)
-    pos = (line[rng.integers(0, 40, 25)]
-           + rng.normal(0, 3, (25, 2))).astype(np.float32)
-    s, (ia, ib) = tproj.get_s_coord(t(line), t(pos), t(s_arr), closed=closed)
-    for k in range(25):
-        rs, (ra, rb) = jproj.get_s_coord(jnp.asarray(line),
-                                         jnp.asarray(pos[k]),
-                                         jnp.asarray(s_arr), closed=closed)
-        assert (int(ra), int(rb)) == (int(ia[k]), int(ib[k])), k
-        np.testing.assert_allclose(float(s[k]), float(rs), atol=1e-3)
+# True / False: the seeded ellipse, closed and open; then the cases the
+# projection kernel must reproduce (testing_tools/projection_cases)
+@pytest.mark.parametrize("case", [True, False] + [
+    n for n in pc.CASES if not n.startswith("ellipse")])
+def test_get_s_coord_matches_jax(case):
+    """Each position set of a case against the JAX function (vmapped over
+    the positions, and over the rows of a polyline a row): the same
+    indices, s within 1 mm (NaN where JAX's is NaN)."""
+    name = {True: "ellipse_closed", False: "ellipse_open"}.get(case, case)
+    line, pos, s_arr, closed = pc.case(name)
+    for p in pos:
+        s, (ia, ib) = tproj.get_s_coord(line, p, s_arr, closed=closed)
+        f = jax.jit(jax.vmap(lambda ln, q, sa: jproj.get_s_coord(
+            ln, q, sa, closed=closed),
+            in_axes=(0 if line.dim() == 3 else None, 0,
+                     0 if line.dim() == 3 else None)))
+        ref = f(jnp.asarray(line.contiguous().numpy()),
+                jnp.asarray(p.reshape(-1, 2).numpy()),
+                jnp.asarray(s_arr.contiguous().numpy()))
+        rs, ra, rb = (np.asarray(x).reshape(s.shape)
+                        for x in (ref[0], *ref[1]))
+        np.testing.assert_array_equal(ra, ia.numpy())
+        np.testing.assert_array_equal(rb, ib.numpy())
+        np.testing.assert_allclose(s.numpy(), rs, atol=1e-3)
 
 
 def test_row_shifts_and_window_match_jax():
